@@ -1,20 +1,31 @@
-"""FOC-NeRF CLI, serving mode: render the test split from saved checkpoints.
+"""FOC-NeRF CLI: train one NeRF per detected object, or render the test split.
 
-Twin of focnerf_tpu/apps/main_nerf.py's ``--test`` mode (:138-178): per
-detected object with a ``<workspace>_<obj>/checkpoints`` directory, load the
-test split with that object's mask, synthesize its object features from the
-saved training-view features (``<workspace>/obj_feats/<obj>.npz``), restore
-the latest checkpoint and render every test view to
-``<workspace>_<obj>/results``.
+Twin of focnerf_tpu/apps/main_nerf.py:
+
+  - training (:50-135), per detected object: the masked train/val splits,
+    the obj-feat sidecar (``<workspace>/obj_feats/<obj>.npz``), a
+    ``Trainer`` in ``<workspace>_<obj>``, ``train``, a final ``evaluate``
+    when the val split exists, mesh export (not ported: it warns), and
+    ``<workspace>/train_times.txt``;
+  - ``--test`` (:138-178): per object with a checkpoint, the test split with
+    its object features synthesized from the saved training-view features,
+    rendered to ``<workspace>_<obj>/results``.
 
 Usage:
+  python -m focnerf_tpu_torch.apps.main_nerf <scene> -O --workspace ws --iters 30000 \
+      --eval_renderer oneshot
   python -m focnerf_tpu_torch.apps.main_nerf <scene> --test -O --workspace ws
+
+The default ``--eval_renderer iter`` needs render/iterative.py, which is not
+ported: training refuses it before its first step when a val split exists.
 """
 
 from __future__ import annotations
 
 import os
 import time
+
+import numpy as np
 
 from focnerf_tpu_torch import resolve_device
 from focnerf_tpu_torch.config import Options, parse_options
@@ -37,6 +48,63 @@ def mask_details_for(sidecar, obj: str):
         "feats": sidecar[f"{obj}__feats"],
         "paths": sidecar.get("paths"),
     }
+
+
+def train_one_object(opt: Options, obj: str, sidecar_train, sidecar_val, device):
+    from focnerf_tpu_torch.data.feats import save_obj_feats
+    from focnerf_tpu_torch.data.provider import NeRFDataset
+    from focnerf_tpu_torch.train.trainer import Trainer
+
+    print(f"[main_nerf] training object: {obj}")
+    train_ds = NeRFDataset(
+        opt.dataset_options(), split="train",
+        mask_details=mask_details_for(sidecar_train, obj), detected_object=obj, device=device,
+    )
+    try:
+        val_ds = NeRFDataset(
+            opt.dataset_options(), split="val",
+            mask_details=mask_details_for(sidecar_val, obj), detected_object=obj, device=device,
+        )
+    except FileNotFoundError:
+        val_ds = None
+    if train_ds.obj_feats is not None:  # for composition/editing (ref :256-261)
+        save_obj_feats(os.path.join(opt.workspace, "obj_feats", f"{obj}.npz"),
+                       train_ds.obj_feats, train_ds.poses)
+    trainer = Trainer(
+        "ngp", opt.nerf_config(), workspace=f"{opt.workspace}_{obj}",
+        lr=opt.lr, lr_net=opt.lr_net or None, lr_warmup=opt.lr_warmup,
+        alpha_loss=opt.alpha_loss, grad_clip=opt.grad_clip,
+        grad_level_phases=opt.grad_level_phases, c2f=opt.c2f, iters=opt.iters,
+        num_steps=opt.num_steps, upsample_steps=opt.upsample_steps,
+        max_ray_batch=opt.max_ray_batch, use_occupancy=opt.cuda_ray, dt_gamma=opt.dt_gamma,
+        max_steps=opt.max_steps, train_slab=opt.train_slab, bucket_slabs=opt.bucket_slabs,
+        skip_march=opt.skip_march, density_thresh=opt.density_thresh,
+        update_extra_interval=opt.update_extra_interval,
+        steps_per_dispatch=opt.steps_per_dispatch, min_near=opt.min_near,
+        color_space=opt.color_space, tv_weight=opt.tv_weight, use_checkpoint=opt.ckpt,
+        seed=opt.seed, rand_pose=opt.rand_pose, eval_interval=opt.eval_interval,
+        ckpt_interval=opt.ckpt_interval, eval_save_images=opt.eval_save_images,
+        eval_renderer=opt.eval_renderer, device=device,
+    )
+    if val_ds is not None:
+        trainer.check_eval_renderer()  # refuse before training, not after it
+    steps_per_epoch = max(train_ds.n_views, 1)
+    # train the REMAINING iters: a --ckpt latest resume starts at its step
+    remaining = max(0, opt.iters - trainer.global_step)
+    t0 = time.time()
+    trainer.train(train_ds, val_ds, max_epochs=int(np.ceil(remaining / steps_per_epoch)),
+                  steps_per_epoch=steps_per_epoch)
+    train_time = time.time() - t0
+    with open(os.path.join(opt.workspace, "train_times.txt"), "a") as f:
+        f.write(f"{obj}: {train_time:.2f}s for {opt.iters} iters\n")
+    if val_ds is not None and trainer.last_eval_step != trainer.global_step:
+        trainer.evaluate(val_ds)
+    if opt.mesh_res > 0:
+        try:
+            trainer.save_mesh(resolution=opt.mesh_res, threshold=opt.density_thresh)
+        except Exception as e:  # mesh export must never kill a training run
+            trainer.log(f"[WARN] mesh export failed: {e}")
+    return trainer
 
 
 def test_mode(opt: Options, sidecar_test, device):
@@ -77,13 +145,9 @@ def test_mode(opt: Options, sidecar_test, device):
 
 
 def main(argv=None, device=None):
-    """CLI entry; ``device`` None means ``cuda`` (raises without CUDA)."""
+    """CLI entry; ``device`` None means ``cuda`` (raises without CUDA).
+    Returns the trained objects' ``Trainer``s (none in ``--test`` mode)."""
     opt = parse_options(argv)
-    if not opt.test:
-        raise NotImplementedError(
-            "training mode comes with slice 2 of the port; train with "
-            "focnerf_tpu.apps.main_nerf and convert with tools/jax_ckpt_to_torch.py"
-        )
     device = resolve_device(device)
     os.makedirs(opt.workspace, exist_ok=True)
 
@@ -95,7 +159,13 @@ def main(argv=None, device=None):
               f"({'disabled' if opt.disable_yolo else 'yolo'} mode)")
         preprocess_scene(opt.path, model_name=opt.yolo_model, disable_yolo=opt.disable_yolo)
         sidecars = {s: load_sidecar(opt.path, s) for s in ("train", "val", "test")}
-    test_mode(opt, sidecars["test"] or sidecars["train"], device)
+    if opt.test:
+        test_mode(opt, sidecars["test"] or sidecars["train"], device)
+        return []
+    return [
+        train_one_object(opt, obj, sidecars["train"], sidecars["val"], device)
+        for obj in detected_objects(sidecars["train"], opt)
+    ]
 
 
 if __name__ == "__main__":

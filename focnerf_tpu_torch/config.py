@@ -3,8 +3,10 @@
 Twin of focnerf_tpu/config.py: the same ``Options`` fields and flags (so a
 command line written for the JAX package parses here), the same ``-O`` and
 ``-O2`` mapping (config.py:347-373), and ``nerf_config``/``dataset_options``
-returning the port's types. Options that only training reads are parsed and
-carried; the training slice gives them their effect.
+returning the port's types. Options of features the port has not ported yet
+(error-map and patch sampling, c2f, gradient-level phases, TV, rand-pose,
+the voxel families, D-NeRF) are parsed and carried; the port's trainer
+refuses those it cannot honour.
 """
 
 from __future__ import annotations
@@ -162,6 +164,7 @@ class Options:
             scale=self.scale,
             offset=tuple(self.offset),
             downscale=self.downscale,
+            num_rays=self.num_rays,
             preload_dtype="float16" if self.fp16 else "float32",
             edit_x=self.edit_x,
         )

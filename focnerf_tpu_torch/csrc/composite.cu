@@ -1,10 +1,11 @@
-// Fused transmittance compositing, forward, for Hopper (sm_90a).
+// Fused transmittance compositing, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel focnerf_tpu/ops/composite_pallas.py::
-// composite_rays_fused (pl.pallas_call(_composite_kernel)). It computes the
-// same function as the plain version in focnerf_tpu_torch/ops/composite.py,
-// in the form of focnerf_tpu/ops/composite.py (not the log(1-a+1e-15) form
-// of the Pallas kernel):
+// composite_rays_fused (pl.pallas_call(_composite_kernel); its custom VJP
+// differentiates the jnp reference). It computes the same function as the
+// plain version in focnerf_tpu_torch/ops/composite.py, in the form of
+// focnerf_tpu/ops/composite.py (not the log(1-a+1e-15) form of the Pallas
+// kernel):
 //
 //   s_i      = dt_i * density_scale * sigma_i          (optical depth)
 //   T_in_i   = exp(-sum_{j<i} s_j)                      (shifted exclusive prefix)
@@ -20,13 +21,31 @@
 // sample can contribute: the loop breaks there, and the result is exact.
 // Sums are fp32.
 //
-// Bound: about 24 B read per sample (sigma, dt, ts, rgb: 6 floats) plus
-// 20 B written per ray; at the serving chunk [4096, 128] that is ~12.6 MB,
-// ~3.8 us at 3.35 TB/s when every sample is read (early exit reads fewer).
-// Row-major [N, T] inputs make neighbouring threads read addresses T*4 B
-// apart, so loads are not coalesced; that, not arithmetic, is this simple
-// kernel's known limit. Forward only: the training backward comes with the
-// training slice.
+// Backward (the training step's): one thread per ray, one front-to-back
+// pass that recomputes w_i and reads the saved forward outputs. With the
+// cotangents gI [3], gW, gD of (image, weights_sum, depth) and
+// gw_i = gI.rgb_i + gD*ts_i + gW - gI.bg (image depends on weights_sum
+// through the background blend):
+//
+//   dL/drgb_i = w_i * gI
+//   dL/ds_k   = T_in_k * exp(-s_k) * gw_k - sum_{i>k} w_i * gw_i
+//   dL/dsigma_k = dL/ds_k * dt_k * density_scale
+//
+// The suffix sum is the total sum_i w_i*gw_i less the running prefix, and
+// the total comes from the saved outputs:
+// gI.(image - (1 - W)*bg) + gD*depth + gW*W - (gI.bg)*W. This is the form of
+// composite_rays_train_backward in torch-ngp's raymarching.cu. The pass
+// breaks where the forward broke; every later sample gets gradient 0, as
+// autodiff of the mask gives. ts and dt get no gradient (the marcher made
+// them).
+//
+// Bound: bytes. Forward: about 24 B read per sample (sigma, dt, ts, rgb: 6
+// floats) plus 20 B written per ray; at the serving chunk [4096, 128] that
+// is ~12.6 MB, ~3.8 us at 3.35 TB/s when every sample is read (early exit
+// reads fewer). Backward: the same reads plus 16 B written per sample (dsigma
+// and drgb are dense [N, T]). Row-major [N, T] inputs make neighbouring
+// threads read addresses T*4 B apart, so loads are not coalesced; that, not
+// arithmetic, is this simple kernel's known limit.
 
 #include <cuda_runtime.h>
 
@@ -79,6 +98,73 @@ __global__ void composite_forward_kernel(
   depth[ray] = d;
 }
 
+__global__ void composite_backward_kernel(
+    const float* __restrict__ sigmas,  // [n, T]
+    const float* __restrict__ rgbs,    // [n, T, 3]
+    const float* __restrict__ deltas,  // [n, T]
+    const float* __restrict__ ts,      // [n, T]
+    const float* __restrict__ bg,      // nullptr, [3] (stride 0) or [n, 3] (stride 3)
+    int bg_stride,
+    const float* __restrict__ image,        // [n, 3] saved forward outputs
+    const float* __restrict__ weights_sum,  // [n]
+    const float* __restrict__ depth,        // [n]
+    const float* __restrict__ g_image,        // [n, 3] cotangents
+    const float* __restrict__ g_weights_sum,  // [n]
+    const float* __restrict__ g_depth,        // [n]
+    float* __restrict__ d_sigmas,  // [n, T]
+    float* __restrict__ d_rgbs,    // [n, T, 3]
+    int n, int T, float density_scale, float T_thresh) {
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ray >= n) return;
+  const size_t base = static_cast<size_t>(ray) * T;
+  const float* sig = sigmas + base;
+  const float* dt = deltas + base;
+  const float* tt = ts + base;
+  const float* rgb = rgbs + base * 3;
+  float* dsig = d_sigmas + base;
+  float* drgb = d_rgbs + base * 3;
+
+  const float gr = g_image[3 * ray], gg = g_image[3 * ray + 1], gb = g_image[3 * ray + 2];
+  const float gW = g_weights_sum[ray], gD = g_depth[ray];
+  float br = 0.f, bgg = 0.f, bb = 0.f;
+  if (bg != nullptr) {
+    const float* c = bg + static_cast<size_t>(ray) * bg_stride;
+    br = c[0];
+    bgg = c[1];
+    bb = c[2];
+  }
+  const float g_bg = gr * br + gg * bgg + gb * bb;
+  const float W = weights_sum[ray];
+  const float rest = 1.f - W;
+  const float total = gr * (image[3 * ray] - rest * br) + gg * (image[3 * ray + 1] - rest * bgg) +
+                      gb * (image[3 * ray + 2] - rest * bb) + gD * depth[ray] + gW * W - g_bg * W;
+
+  float acc = 0.f;     // sum_{j<i} s_j, as in the forward
+  float prefix = 0.f;  // sum_{j<=i} w_j * gw_j
+  int i = 0;
+  for (; i < T; ++i) {
+    const float trans = expf(-acc);
+    if (trans < T_thresh) break;
+    const float s = dt[i] * density_scale * sig[i];
+    const float e = expf(-s);
+    const float w = (1.f - e) * trans;
+    const float gw = gr * rgb[3 * i] + gg * rgb[3 * i + 1] + gb * rgb[3 * i + 2] + gD * tt[i] + gW - g_bg;
+    prefix += w * gw;
+    const float d_s = trans * e * gw - (total - prefix);
+    dsig[i] = d_s * (dt[i] * density_scale);
+    drgb[3 * i] = w * gr;
+    drgb[3 * i + 1] = w * gg;
+    drgb[3 * i + 2] = w * gb;
+    acc += s;
+  }
+  for (; i < T; ++i) {
+    dsig[i] = 0.f;
+    drgb[3 * i] = 0.f;
+    drgb[3 * i + 1] = 0.f;
+    drgb[3 * i + 2] = 0.f;
+  }
+}
+
 }  // namespace
 
 extern "C" int focnerf_composite_forward(
@@ -91,6 +177,22 @@ extern "C" int focnerf_composite_forward(
     composite_forward_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         sigmas, rgbs, deltas, ts, bg, bg_stride, image, weights_sum, depth, n, T,
         density_scale, T_thresh);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int focnerf_composite_backward(
+    const float* sigmas, const float* rgbs, const float* deltas, const float* ts,
+    const float* bg, int bg_stride, const float* image, const float* weights_sum,
+    const float* depth, const float* g_image, const float* g_weights_sum, const float* g_depth,
+    float* d_sigmas, float* d_rgbs, int n, int T, float density_scale, float T_thresh,
+    void* stream) {
+  constexpr int kThreads = 32;
+  if (n > 0) {
+    const int blocks = (n + kThreads - 1) / kThreads;
+    composite_backward_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        sigmas, rgbs, deltas, ts, bg, bg_stride, image, weights_sum, depth, g_image,
+        g_weights_sum, g_depth, d_sigmas, d_rgbs, n, T, density_scale, T_thresh);
   }
   return static_cast<int>(cudaGetLastError());
 }

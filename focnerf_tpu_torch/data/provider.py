@@ -1,10 +1,15 @@
-"""Dataset provider for serving: transforms.json scenes -> test/eval views.
+"""Dataset provider: transforms.json scenes -> training batches and views.
 
-Twin of the loading half of focnerf_tpu/data/provider.py (nerf/provider.py
-:91-396): blender/colmap layout autodetect, ``nerf_matrix_to_ngp`` poses,
-the colmap slerp test path, per-object masking from the YOLO sidecar
-(aligned to frames by path), intrinsics from fl_x/fl_y or camera angles,
-and ``eval_view``. Training batches belong to the training slice.
+Twin of focnerf_tpu/data/provider.py (nerf/provider.py:91-459):
+blender/colmap layout autodetect, ``nerf_matrix_to_ngp`` poses, the colmap
+slerp test path, per-object masking from the YOLO sidecar (aligned to
+frames by path), intrinsics from fl_x/fl_y or camera angles, ``eval_view``
+and, for training, ``train_batch``: the images, masks and object features
+are preloaded on the device and a batch (one random view, ``num_rays``
+uniform pixels, their rays and GT) is gathered there from a
+``torch.Generator``, as ``make_batch_assemble`` does. The host pipeline
+(``--no-preload``) and the error-map, patch and rand-pose batches are not
+ported.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from focnerf_tpu_torch.core.camera import nerf_matrix_to_ngp
+from focnerf_tpu_torch.core.rays import get_rays, sample_ray_indices
 from focnerf_tpu_torch.data.png import read_image
 
 
@@ -27,6 +33,7 @@ class DatasetOptions:
     scale: float = 0.33
     offset: tuple = (0.0, 0.0, 0.0)
     downscale: int = 1
+    num_rays: int = 4096
     preload_dtype: str = "float32"  # or "float16" (-O)
     edit_x: float = 0.0  # camera x-shift for editing previews
 
@@ -163,6 +170,13 @@ class NeRFDataset:
             dtype = torch.float16 if opt.preload_dtype == "float16" else torch.float32
             arr = np.stack(images).reshape(self.n_views, -1, images[0].shape[-1])
             self.images = torch.as_tensor(arr).to(self.device, dtype)
+        self.poses_dev = torch.as_tensor(self.poses).to(self.device)
+        self.masks_dev = None
+        if self.masks is not None:
+            self.masks_dev = torch.as_tensor(self.masks.reshape(self.n_views, -1)).to(self.device)
+        self.obj_feats_dev = None
+        if self.obj_feats is not None:
+            self.obj_feats_dev = torch.as_tensor(self.obj_feats).to(self.device)
 
         t = transform
         if "fl_x" in t or "fl_y" in t:
@@ -207,6 +221,31 @@ class NeRFDataset:
         self.obj_feats = np.stack(feats)  # [V, F]
         self.masks = np.stack(msks)  # [V, H, W] bool
         return masked
+
+    def train_batch(self, generator: torch.Generator) -> dict:
+        """One training batch drawn from ``generator`` (on the dataset's
+        device): a random view and ``num_rays`` uniform pixels of it ->
+        dict(rays_o, rays_d [N, 3], pixels [N, C] f32, ray_mask [N] bool when
+        the split has masks, obj_feat [F] when it has features, view).
+        Everything stays on the device: no host sync."""
+        if self.images is None:
+            raise ValueError(f"split {self.split!r} has no images to train on")
+        view = torch.randint(0, self.n_views, (1,), generator=generator, device=self.device)
+        inds = sample_ray_indices(generator, self.H, self.W, self.opt.num_rays, self.device)
+        flat = view * (self.H * self.W) + inds  # rows of the [V * H * W] pixel stack
+        rays = get_rays(self.poses_dev.index_select(0, view)[0], self.intrinsics, self.H, self.W,
+                        inds=inds, device=self.device)
+        batch = {
+            "rays_o": rays["rays_o"],
+            "rays_d": rays["rays_d"],
+            "pixels": self.images.reshape(-1, self.images.shape[-1])[flat].float(),
+            "view": view[0],
+        }
+        if self.masks_dev is not None:
+            batch["ray_mask"] = self.masks_dev.reshape(-1)[flat]
+        if self.obj_feats_dev is not None:
+            batch["obj_feat"] = self.obj_feats_dev.index_select(0, view)[0]
+        return batch
 
     def eval_view(self, view: int) -> dict:
         """Pose, size, GT pixels and object feature of one view."""

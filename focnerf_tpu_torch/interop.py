@@ -7,6 +7,9 @@
     the config's shapes;
   - ``occupancy_from_jax``: ``density_grid`` [CAS, H^3], ``mean_density``,
     ``iter_density`` -> ``OccupancyState``;
+  - ``train_state_from_jax``: a JAX ``TrainState`` (params, the optax Adam
+    moments ``mu``/``nu`` and ``count``, EMA params, ``ema_count``, step)
+    -> the port's ``TrainState``, so a JAX run resumes in the port;
   - ``config_to_dict``/``config_from_dict``: ``NeRFConfig`` <-> the
     ``model_config.json`` dict that focnerf_tpu/train/checkpoints.py:29-63
     writes.
@@ -24,6 +27,7 @@ import torch
 
 from focnerf_tpu_torch.models.nerf import NeRFConfig, Params
 from focnerf_tpu_torch.ops.occupancy import OccupancyState, cascade_count
+from focnerf_tpu_torch.train.state import TrainState, param_leaves
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -81,3 +85,28 @@ def occupancy_from_jax(occ: Mapping[str, Any], bound: float, device, grid_size: 
         mean_density=_tensor(occ["mean_density"], (), "mean_density", device),
         iter_density=torch.as_tensor(np.array(occ["iter_density"]), dtype=torch.int32).to(device),
     )
+
+
+def train_state_from_jax(
+    *, params, mu, nu, count, ema_params, ema_count, step, cfg: NeRFConfig, device, **state_kw
+) -> TrainState:
+    """The JAX TrainState's pieces (numpy pytrees and ints; ``mu``, ``nu``,
+    ``count`` from optax's ScaleByAdamState) -> the port's ``TrainState`` on
+    ``device``. ``state_kw`` (lr, iters, lr_net, warmup, grad_clip,
+    ema_decay) must be the JAX run's optimizer settings."""
+    state = TrainState(params_from_jax(params, cfg, device), **state_kw)
+    moments = zip(param_leaves(params_from_jax(mu, cfg, device)),
+                  param_leaves(params_from_jax(nu, cfg, device)))
+    opt = state.optimizer.state_dict()
+    opt["state"] = {
+        i: {"step": torch.tensor(float(count)), "exp_avg": m, "exp_avg_sq": v}
+        for i, (m, v) in enumerate(moments)
+    }
+    state.load_state_dict({
+        "step": int(step),
+        "params": params_from_jax(params, cfg, device),
+        "ema_params": params_from_jax(ema_params, cfg, device),
+        "ema_count": int(ema_count),
+        "optimizer": opt,
+    })
+    return state

@@ -25,9 +25,10 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class NeRFConfig:
     """Same fields as the JAX NeRFConfig (so ``model_config.json`` round-trips);
-    ``compute_dtype`` is a torch dtype. The training-only fields
-    (stochastic corners, grad levels, coarse-to-fine) are carried but unused
-    by the serving path."""
+    ``compute_dtype`` is a torch dtype. ``stochastic_corners`` and
+    ``stochastic_min_size`` shape the training encode (``density_fn`` with
+    ``u``); ``grad_levels`` and ``active_levels`` (``-O2``) are carried but
+    not ported yet."""
 
     bound: float = 1.0
     num_levels: int = 16
@@ -54,10 +55,16 @@ class NeRFConfig:
 
     @property
     def grid_spec(self) -> HashGridSpec:
-        return _grid_spec(
+        spec = _grid_spec(
             self.num_levels, self.level_dim, self.base_resolution,
             self.log2_hashmap_size, 2048.0 * self.bound,
         )
+        if self.stochastic_corners:
+            spec = dataclasses.replace(
+                spec, stochastic_k=self.stochastic_corners,
+                stochastic_min_size=self.stochastic_min_size,
+            )
+        return spec
 
     @property
     def bg_grid_spec(self) -> HashGridSpec:
@@ -113,10 +120,13 @@ def init_nerf_params(generator: torch.Generator, cfg: NeRFConfig, device) -> Par
     return params
 
 
-def density_fn(params: Params, cfg: NeRFConfig, x: torch.Tensor):
-    """x [..., 3] in [-bound, bound] -> (sigma [...], geo_feat [..., geo])."""
+def density_fn(params: Params, cfg: NeRFConfig, x: torch.Tensor, u: Optional[torch.Tensor] = None):
+    """x [..., 3] in [-bound, bound] -> (sigma [...], geo_feat [..., geo]).
+
+    ``u`` (training) holds the stochastic-corner draws of the encode,
+    [x.numel() // 3, n_stoch, K, 3]; without it the encode is exact."""
     x01 = (x + cfg.bound) / (2.0 * cfg.bound)
-    feats = hashgrid_encode(params["grid"], x01, cfg.grid_spec)
+    feats = hashgrid_encode(params["grid"], x01, cfg.grid_spec, u)
     h = mlp_apply(params["sigma_net"], feats, cfg.compute_dtype)
     return trunc_exp(h[..., 0]), h[..., 1:]
 

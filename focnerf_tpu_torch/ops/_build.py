@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``.gitignore``). The library's file name carries a hash of its source, so a
 changed source builds anew and an unchanged one is loaded as it is. Nothing
 is built when a module is imported: a wrapper builds its library at its
-first launch.
+first launch, and ``build_all`` builds every library at once, one ``nvcc``
+process per source, all started together.
 """
 
 from __future__ import annotations
@@ -15,11 +16,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build")
-KERNEL_SOURCES = ("composite",)
+KERNEL_SOURCES = ("composite", "hashgrid_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -46,23 +47,35 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns its path."""
-    out = library_path(name)
-    if not os.path.exists(out):
+def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one nvcc
+    process each, all running at once; returns {name: library path}."""
+    outs = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not os.path.exists(out)}
+    if todo:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {out}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return out
+        nvcc = find_nvcc()
+        procs = {}
+        for name, out in todo.items():
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) for {todo[name]}:\n{log}")
+            else:
+                os.replace(tmp, todo[name])  # atomic: a concurrent loader never sees a partial file
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if missing."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(build(name))
+        lib = _loaded[name] = ctypes.CDLL(build_all((name,))[name])
     return lib

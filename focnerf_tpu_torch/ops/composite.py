@@ -1,16 +1,22 @@
-"""Transmittance compositing: plain PyTorch and the fused CUDA kernel.
+"""Transmittance compositing: plain PyTorch and the fused CUDA kernels.
 
 Twin of focnerf_tpu/ops/composite.py (``composite_weights``,
 ``composite_rays``) and of focnerf_tpu/ops/composite_pallas.py
-(``composite_rays_fused``). Transmittance is ``exp(-exclusive prefix sum of
-optical depth)``, the exclusive prefix built by SHIFTING an inclusive
-cumsum, never as ``acc - s``: a sigma spike to inf then keeps the spiked
-sample's finite entering T and zeroes everything behind it. Early
-termination is the mask ``T_in >= T_thresh``.
+(``composite_rays_fused``, whose custom VJP differentiates the jnp
+reference). Transmittance is ``exp(-exclusive prefix sum of optical
+depth)``, the exclusive prefix built by SHIFTING an inclusive cumsum, never
+as ``acc - s``: a sigma spike to inf then keeps the spiked sample's finite
+entering T and zeroes everything behind it. Early termination is the mask
+``T_in >= T_thresh``.
 
-``composite_rays_fused`` is the serving path's compositor. On a CPU tensor
-it runs the plain version; on a CUDA tensor it launches
-``csrc/composite.cu`` or raises. It has no training backward yet.
+``composite_rays_fused`` is the render and train paths' compositor, and it
+is differentiable in ``sigmas`` and ``rgbs`` (and in a background tensor
+that requires grad). On CPU tensors it is the plain ``composite_rays``,
+which autograd differentiates. On CUDA tensors it is a
+``torch.autograd.Function`` whose forward launches
+``focnerf_composite_forward`` and whose backward launches
+``focnerf_composite_backward`` (``csrc/composite.cu``), or raises. ``ts``
+and ``deltas`` get no gradient: the marcher made them.
 """
 
 from __future__ import annotations
@@ -65,7 +71,7 @@ def _bg_operand(bg_color, n: int, device) -> tuple:
         return None, 0
     if isinstance(bg_color, (int, float)):
         return torch.full((3,), float(bg_color), dtype=torch.float32, device=device), 0
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device).detach()
     if bg.dim() == 0:
         return bg.expand(3).contiguous(), 0
     if bg.shape == (3,):
@@ -75,42 +81,122 @@ def _bg_operand(bg_color, n: int, device) -> tuple:
     raise ValueError(f"bg_color must be None, a scalar, [3] or [{n}, 3]; got {tuple(bg.shape)}")
 
 
-def _launch(sigmas, rgbs, deltas, ts, bg_color, density_scale, T_thresh):
-    from focnerf_tpu_torch.ops._build import load_library
-
-    n, T = sigmas.shape
-    for name, t, shape in (
-        ("sigmas", sigmas, (n, T)),
-        ("rgbs", rgbs, (n, T, 3)),
-        ("deltas", deltas, (n, T)),
-        ("ts", ts, (n, T)),
-    ):
-        if t.device != sigmas.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: need float32 on {sigmas.device}, got {t.dtype} on {t.device}")
+def _check(named, n: int, T: int, device):
+    shapes = {"sigmas": (n, T), "rgbs": (n, T, 3), "deltas": (n, T), "ts": (n, T)}
+    for name, t in named.items():
+        shape = shapes.get(name, (n, 3) if name in ("image", "g_image") else (n,))
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: need float32 on {device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {shape}, got {tuple(t.shape)}")
-    bg, bg_stride = _bg_operand(bg_color, n, sigmas.device)
+
+
+def _function(name: str, n_ptrs: int):
+    """The kernel library's C function ``name`` with its argtypes set: five
+    input pointers, the background's row stride, ``n_ptrs`` more pointers,
+    then n, T, density_scale, T_thresh and the stream."""
+    from focnerf_tpu_torch.ops._build import load_library
+
+    fn = getattr(load_library("composite"), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+    return fn
+
+
+def _launch(sigmas, rgbs, deltas, ts, bg, bg_stride, density_scale, T_thresh):
+    n, T = sigmas.shape
+    _check(dict(sigmas=sigmas, rgbs=rgbs, deltas=deltas, ts=ts), n, T, sigmas.device)
     image = torch.empty((n, 3), dtype=torch.float32, device=sigmas.device)
     weights_sum = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
     depth = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
-
-    fn = load_library("composite").focnerf_composite_forward
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-    stream = torch.cuda.current_stream(sigmas.device).cuda_stream
-    err = fn(
+    err = _function("focnerf_composite_forward", 3)(
         sigmas.data_ptr(), rgbs.data_ptr(), deltas.data_ptr(), ts.data_ptr(),
         bg.data_ptr() if bg is not None else None, bg_stride,
         image.data_ptr(), weights_sum.data_ptr(), depth.data_ptr(),
-        n, T, float(density_scale), float(T_thresh), stream,
+        n, T, float(density_scale), float(T_thresh),
+        torch.cuda.current_stream(sigmas.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"composite kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"composite forward kernel launch failed: cudaError {err}")
     composite_rays_fused.launches += 1
     return image, weights_sum, depth
+
+
+def composite_rays_fused_backward(
+    sigmas, rgbs, deltas, ts, bg_color, outputs, grads, density_scale: float = 1.0,
+    T_thresh: float = 0.0,
+):
+    """(d_sigmas [N, T], d_rgbs [N, T, 3]) of the fused composite.
+
+    ``outputs`` = (image, weights_sum, depth) of the forward on the same
+    inputs, ``grads`` their cotangents (None for a zero cotangent). CPU
+    tensors: autograd of the plain ``composite_rays``. CUDA tensors: the
+    backward kernel, which counts one launch in
+    ``composite_rays_fused_backward.launches``.
+    """
+    n, T = sigmas.shape
+    grads = [torch.zeros_like(o) if g is None else g.float().contiguous()
+             for o, g in zip(outputs, grads)]
+    if not sigmas.is_cuda:
+        if sigmas.device.type != "cpu":
+            raise ValueError(f"composite_rays_fused_backward: unsupported device {sigmas.device}")
+        with torch.enable_grad():
+            s, c = sigmas.detach().requires_grad_(), rgbs.detach().requires_grad_()
+            out = composite_rays(s, c, deltas, ts, bg_color, density_scale, T_thresh)
+            return torch.autograd.grad(
+                (out["image"], out["weights_sum"], out["depth"]), (s, c), grads
+            )
+    bg, bg_stride = _bg_operand(bg_color, n, sigmas.device)
+    image, weights_sum, depth = outputs
+    g_image, g_weights_sum, g_depth = grads
+    _check(dict(sigmas=sigmas, rgbs=rgbs, deltas=deltas, ts=ts, image=image,
+                weights_sum=weights_sum, depth=depth, g_image=g_image,
+                g_weights_sum=g_weights_sum, g_depth=g_depth), n, T, sigmas.device)
+    d_sigmas = torch.empty((n, T), dtype=torch.float32, device=sigmas.device)
+    d_rgbs = torch.empty((n, T, 3), dtype=torch.float32, device=sigmas.device)
+    err = _function("focnerf_composite_backward", 8)(
+        sigmas.data_ptr(), rgbs.data_ptr(), deltas.data_ptr(), ts.data_ptr(),
+        bg.data_ptr() if bg is not None else None, bg_stride,
+        image.data_ptr(), weights_sum.data_ptr(), depth.data_ptr(),
+        g_image.data_ptr(), g_weights_sum.data_ptr(), g_depth.data_ptr(),
+        d_sigmas.data_ptr(), d_rgbs.data_ptr(),
+        n, T, float(density_scale), float(T_thresh),
+        torch.cuda.current_stream(sigmas.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"composite backward kernel launch failed: cudaError {err}")
+    composite_rays_fused_backward.launches += 1
+    return d_sigmas, d_rgbs
+
+
+class _CompositeFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sigmas, rgbs, deltas, ts, bg_color, density_scale, T_thresh):
+        bg, bg_stride = _bg_operand(bg_color, sigmas.shape[0], sigmas.device)
+        outputs = _launch(sigmas, rgbs, deltas, ts, bg, bg_stride, density_scale, T_thresh)
+        ctx.save_for_backward(sigmas, rgbs, deltas, ts, *outputs)
+        ctx.bg_color = bg_color
+        ctx.bg_grad = torch.is_tensor(bg_color) and bg_color.requires_grad
+        ctx.args = (density_scale, T_thresh)
+        return outputs
+
+    @staticmethod
+    def backward(ctx, g_image, g_weights_sum, g_depth):
+        sigmas, rgbs, deltas, ts, *outputs = ctx.saved_tensors
+        d_sigmas, d_rgbs = composite_rays_fused_backward(
+            sigmas, rgbs, deltas, ts, ctx.bg_color, outputs, (g_image, g_weights_sum, g_depth),
+            *ctx.args,
+        )
+        d_bg = None
+        if ctx.bg_grad and g_image is not None:
+            # image += (1 - weights_sum) * bg, reduced to the background's shape
+            d_bg = g_image * (1.0 - outputs[1])[:, None]
+            d_bg = d_bg.sum(0) if ctx.bg_color.dim() == 1 else d_bg
+            d_bg = d_bg.sum() if ctx.bg_color.dim() == 0 else d_bg
+        return d_sigmas, d_rgbs, None, None, d_bg, None, None
 
 
 def composite_rays_fused(
@@ -120,11 +206,12 @@ def composite_rays_fused(
 
     sigmas, deltas, ts [N, T]; rgbs [N, T, 3]; ``bg_color`` None, a scalar,
     [3] or [N, 3], blended in as ``image += (1 - weights_sum) * bg``. CPU
-    tensors take the plain version; CUDA tensors take the kernel (and count
-    one launch in ``composite_rays_fused.launches``).
+    tensors take the plain version; CUDA tensors take the kernels (one launch
+    counted in ``composite_rays_fused.launches`` per forward, one in
+    ``composite_rays_fused_backward.launches`` per backward).
     """
     if sigmas.is_cuda:
-        return _launch(sigmas, rgbs, deltas, ts, bg_color, density_scale, T_thresh)
+        return _CompositeFused.apply(sigmas, rgbs, deltas, ts, bg_color, density_scale, T_thresh)
     if sigmas.device.type != "cpu":
         raise ValueError(f"composite_rays_fused: unsupported device {sigmas.device}")
     out = composite_rays(sigmas, rgbs, deltas, ts, bg_color, density_scale, T_thresh)
@@ -132,3 +219,4 @@ def composite_rays_fused(
 
 
 composite_rays_fused.launches = 0
+composite_rays_fused_backward.launches = 0

@@ -1,8 +1,9 @@
-"""Multiresolution hash-grid encoding (Instant-NGP), exact 8-corner forward.
+"""Multiresolution hash-grid encoding (Instant-NGP) and its table gradient.
 
 Twin of focnerf_tpu/ops/hashgrid.py (``HashGridSpec.create``,
-``_level_corner_indices``, ``_coords_to_rows`` and the exact branch of
-``_encode_impl``), in plain PyTorch:
+``_level_corner_indices``, ``_level_sampled_indices``, ``_coords_to_rows``,
+``_is_stochastic_level``, ``_col_layout``, ``_encode_impl`` and the custom
+VJP ``_encode_sorted_bwd``), in plain PyTorch:
 
   - per level l: scale ``exp2(l * log2 s) * base - 1`` and the ``+0.5``
     offset of gridencoder.cu, corner bit d -> +1 in dim d;
@@ -11,16 +12,27 @@ Twin of focnerf_tpu/ops/hashgrid.py (``HashGridSpec.create``,
     taken in int64 and masked with ``& 0xFFFFFFFF`` after every multiply,
     which keeps exactly the uint32 low bits, then ``% size``;
   - inputs outside [0, 1] encode to zeros;
-  - level-major output ``out[:, l*C + c]``.
+  - level-major output ``out[:, l*C + c]``;
+  - training's stochastic corners: with uniforms ``u`` [N, n_stoch, K, D]
+    passed in, each stochastic level (hashed, or dense with at least
+    ``stochastic_min_size`` rows) resolves K corners drawn with probability
+    equal to their trilinear weight (D Bernoulli(frac_d) draws), each of
+    weight 1/K.
 
-Stochastic corners, coarse-to-fine and the table backward belong to the
-training slice and are not here yet.
+The table gradient is ``HashGridEncode``'s backward, as the JAX custom VJP's
+(position gradients are dropped): ``hashgrid_table_grad`` scatters
+``weights * g`` into the table rows the forward read. On CPU tensors that is
+``index_add_``; on CUDA tensors it launches ``csrc/hashgrid_bwd.cu`` (the
+port of ``hashgrid_pallas.py::hashgrid_bwd_level``, all levels in one
+launch) or raises. Coarse-to-fine, ``grad_levels`` and the TV loss wait.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +51,10 @@ class HashGridSpec:
     log2_hashmap_size: int = 19
     per_level_scale: float = 2.0
     input_dim: int = 3
+    # training: K stochastic corners on hashed levels and on dense levels of
+    # at least stochastic_min_size rows (0: hashed only); 0 = exact
+    stochastic_k: int = 0
+    stochastic_min_size: int = 0
     resolutions: Tuple[int, ...] = ()
     offsets: Tuple[int, ...] = ()  # num_levels + 1 entries, in table rows
     hashed: Tuple[bool, ...] = ()
@@ -124,10 +140,7 @@ def _coords_to_rows(coords: torch.Tensor, spec: HashGridSpec, lvl: int) -> torch
 def _level_corner_indices(x01: torch.Tensor, spec: HashGridSpec, lvl: int):
     """(rows [N, 2^D] int64 into the flat table, weights [N, 2^D] f32)."""
     D = spec.input_dim
-    scale = float(
-        np.float32(np.exp2(lvl * np.log2(spec.per_level_scale)) * spec.base_resolution - 1.0)
-    )
-    pos = x01 * scale + 0.5
+    pos = x01 * _level_scale(spec, lvl) + 0.5
     pos_grid = torch.floor(pos)
     frac = pos - pos_grid
     base = pos_grid.to(torch.int64)  # [N, D]
@@ -139,18 +152,190 @@ def _level_corner_indices(x01: torch.Tensor, spec: HashGridSpec, lvl: int):
     return rows, w
 
 
-def hashgrid_encode(table: torch.Tensor, x01: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
-    """Encode points x01 [..., D] in [0, 1] -> features [..., L * C] (exact)."""
-    prefix = x01.shape[:-1]
+def _level_scale(spec: HashGridSpec, lvl: int) -> float:
+    return float(
+        np.float32(np.exp2(lvl * np.log2(spec.per_level_scale)) * spec.base_resolution - 1.0)
+    )
+
+
+def _level_sampled_indices(x01: torch.Tensor, spec: HashGridSpec, lvl: int, u3: torch.Tensor):
+    """Rows [N, K] (int64) of K corners drawn by weight: the trilinear weight
+    factorizes per axis, so corner bit d is the Bernoulli draw u3[..., d] <
+    frac_d (u3 [N, K, D] uniforms in [0, 1))."""
+    pos = x01 * _level_scale(spec, lvl) + 0.5
+    pos_grid = torch.floor(pos)
+    frac = pos - pos_grid  # [N, D]
+    bits = (u3 < frac[:, None, :]).to(torch.int64)  # [N, K, D]
+    return _coords_to_rows(pos_grid.to(torch.int64)[:, None, :] + bits, spec, lvl)
+
+
+@functools.lru_cache(maxsize=None)
+def _is_stochastic_level(spec: HashGridSpec, lvl: int) -> bool:
+    if spec.stochastic_k <= 0:
+        return False
+    if spec.hashed[lvl]:
+        return True
+    return spec.stochastic_min_size > 0 and spec.level_size(lvl) >= spec.stochastic_min_size
+
+
+def stochastic_levels(spec: HashGridSpec) -> Tuple[int, ...]:
+    """The levels a training encode resolves stochastically (``u``'s axis 1)."""
+    return tuple(lvl for lvl in range(spec.num_levels) if _is_stochastic_level(spec, lvl))
+
+
+def col_levels(spec: HashGridSpec, stochastic: bool) -> Tuple[int, ...]:
+    """Level of every packed (level, corner) column of the encode's
+    residuals: 2^D columns for an exact level, K for a stochastic one."""
+    stoch = stochastic_levels(spec) if stochastic else ()
+    cols = []
+    for lvl in range(spec.num_levels):
+        cols += [lvl] * (spec.stochastic_k if lvl in stoch else 1 << spec.input_dim)
+    return tuple(cols)
+
+
+def _encode(table, x01, spec: HashGridSpec, u: Optional[torch.Tensor], residuals: bool):
+    """Shared forward -> (out [N, L*C], rows [N, J] int32 or None, weights
+    [N, J] or None); rows/weights only when ``residuals``."""
     x = x01.reshape(-1, spec.input_dim).float()
+    n = x.shape[0]
     oob = ((x < 0.0) | (x > 1.0)).any(-1)
     # out-of-range points get zero weights; moving them to the origin keeps
     # every dense-level row inside the table
     x = torch.where(oob[:, None], torch.zeros_like(x), x)
     keep = (~oob).float()[:, None]
-    outs = []
+    stoch = stochastic_levels(spec) if u is not None else ()
+    if stoch and tuple(u.shape) != (n, len(stoch), spec.stochastic_k, spec.input_dim):
+        raise ValueError(
+            f"u: need shape {(n, len(stoch), spec.stochastic_k, spec.input_dim)}, got {tuple(u.shape)}"
+        )
+    outs, rows_l, w_l = [], [], []
     for lvl in range(spec.num_levels):
-        rows, w = _level_corner_indices(x, spec, lvl)
-        vals = table[rows]  # [N, 2^D, C]
-        outs.append(((w * keep)[..., None] * vals).sum(1))
-    return torch.cat(outs, dim=-1).reshape(*prefix, spec.output_dim)
+        if lvl in stoch:
+            rows = _level_sampled_indices(x, spec, lvl, u[:, stoch.index(lvl)])
+            w = torch.full(rows.shape, 1.0 / spec.stochastic_k, device=x.device)
+        else:
+            rows, w = _level_corner_indices(x, spec, lvl)
+        w = w * keep
+        outs.append((w[..., None] * table[rows]).sum(1))  # [N, C]
+        if residuals:
+            rows_l.append(rows.to(torch.int32))
+            w_l.append(w)
+    out = torch.cat(outs, dim=-1)
+    if not residuals:
+        return out, None, None
+    return out, torch.cat(rows_l, 1), torch.cat(w_l, 1)
+
+
+class HashGridEncode(torch.autograd.Function):
+    """Encode with the table gradient of the JAX custom VJP: the forward
+    saves (rows, weights); the backward is ``hashgrid_table_grad``. Points
+    and draws get no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, x01, u, spec):
+        out, rows, weights = _encode(table, x01, spec, u, residuals=True)
+        ctx.save_for_backward(rows, weights)
+        ctx.cols = col_levels(spec, u is not None)
+        ctx.n_rows = table.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, weights = ctx.saved_tensors
+        d_table = hashgrid_table_grad(rows, weights, g, ctx.cols, ctx.n_rows)
+        return d_table, None, None, None
+
+
+def hashgrid_encode(
+    table: torch.Tensor, x01: torch.Tensor, spec: HashGridSpec, u: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Encode points x01 [..., D] in [0, 1] -> features [..., L * C].
+
+    Exact unless ``u`` is given and ``spec.stochastic_k > 0`` (training):
+    ``u`` [N, n_stoch, K, D] holds the corner draws, N the flattened point
+    count, in the JAX package's shape and order. Differentiable in the table
+    (``HashGridEncode``) when autograd needs it.
+    """
+    prefix = x01.shape[:-1]
+    if spec.stochastic_k <= 0:
+        u = None
+    if table.requires_grad and torch.is_grad_enabled():
+        out = HashGridEncode.apply(table, x01, u, spec)
+    else:
+        out, _, _ = _encode(table, x01, spec, u, residuals=False)
+    return out.reshape(*prefix, spec.output_dim)
+
+
+@functools.lru_cache(maxsize=None)
+def _col_level_tensor(cols: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    return torch.tensor(cols, dtype=torch.int32, device=device)
+
+
+def hashgrid_table_grad(
+    rows: torch.Tensor, weights: torch.Tensor, g: torch.Tensor, cols: Tuple[int, ...], n_rows: int
+) -> torch.Tensor:
+    """d_table [n_rows, C] f32: ``d_table[rows[n, j]] += weights[n, j] *
+    g[n, cols[j]*C : cols[j]*C + C]`` for every point n and packed column j.
+
+    rows [N, J] int32, weights [N, J] f32, g [N, L*C] the output cotangent
+    (cast to fp32), ``cols`` the level of each column (``col_levels``).
+    Rows nothing touches stay exactly 0. CPU tensors: ``index_add_``. CUDA
+    tensors: the scatter kernel, one launch counted in
+    ``hashgrid_table_grad.launches``.
+    """
+    n, J = rows.shape
+    L = max(cols) + 1
+    C = g.shape[-1] // L
+    g = g.reshape(n, L * C).float().contiguous()
+    col_level = _col_level_tensor(tuple(cols), rows.device)
+    if not rows.is_cuda:
+        if rows.device.type != "cpu":
+            raise ValueError(f"hashgrid_table_grad: unsupported device {rows.device}")
+        return table_grad_plain(rows, weights, g, col_level, n_rows, C)
+    return _table_grad_launch(rows, weights, g, col_level, n_rows, C)
+
+
+def table_grad_plain(rows, weights, g, col_level, n_rows: int, C: int) -> torch.Tensor:
+    """The plain version of the scatter (``index_add_``), on any device:
+    ``col_level`` [J] int32 tensor, g [N, L*C] fp32."""
+    n = rows.shape[0]
+    contrib = weights[..., None] * g.reshape(n, -1, C).index_select(1, col_level)
+    d_table = torch.zeros((n_rows, C), dtype=torch.float32, device=rows.device)
+    return d_table.index_add_(0, rows.reshape(-1), contrib.reshape(-1, C))
+
+
+def _table_grad_launch(rows, weights, g, col_level, n_rows: int, C: int):
+    from focnerf_tpu_torch.ops._build import load_library
+
+    n, J = rows.shape
+    for name, t, dtype, shape in (
+        ("rows", rows, torch.int32, (n, J)),
+        ("weights", weights, torch.float32, (n, J)),
+        ("g", g, torch.float32, tuple(g.shape)),
+        ("col_level", col_level, torch.int32, (J,)),
+    ):
+        if t.device != rows.device or t.dtype != dtype:
+            raise ValueError(f"{name}: need {dtype} on {rows.device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {shape}, got {tuple(t.shape)}")
+    if n_rows >= 2**31:
+        raise ValueError(f"table of {n_rows} rows: int32 rows need fewer than 2^31")
+    d_table = torch.zeros((n_rows, C), dtype=torch.float32, device=rows.device)
+    fn = load_library("hashgrid_bwd").focnerf_hashgrid_table_grad
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p
+        ]
+    err = fn(
+        rows.data_ptr(), weights.data_ptr(), g.data_ptr(), col_level.data_ptr(),
+        d_table.data_ptr(), n * J, J, C, g.shape[1],
+        torch.cuda.current_stream(rows.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"table-gradient kernel launch failed: cudaError {err}")
+    hashgrid_table_grad.launches += 1
+    return d_table
+
+
+hashgrid_table_grad.launches = 0

@@ -1,18 +1,27 @@
 """Occupancy-aware ray marching with fixed shapes.
 
-Twin of focnerf_tpu/ops/marching.py:42-157 (``candidate_ts``, ``_mip_level``,
-``march_rays``). The CUDA marcher's t-values are a prefix-subset of the
-no-skip recurrence ``t += clamp(t * dt_gamma, dt_min, dt_max)``, whose
-closed form gives the whole candidate ladder [N, max_steps]; each candidate
-looks up the mip-level bitfield, and a stable sort moves the first ``slab``
-occupied candidates of each ray to the front. The sphere-trace
-``march_rays_skip`` comes with the iterative renderer.
+Twin of focnerf_tpu/ops/marching.py (``candidate_ts``, ``_mip_level``,
+``march_rays``, ``march_rays_skip``). The CUDA marcher's t-values are a
+prefix-subset of the no-skip recurrence ``t += clamp(t * dt_gamma, dt_min,
+dt_max)``:
+
+  - ``march_rays``: the closed form gives the whole candidate ladder
+    [N, max_steps]; each candidate looks up the mip-level bitfield, and a
+    stable sort moves the first ``slab`` occupied candidates of each ray to
+    the front;
+  - ``march_rays_skip``: a sphere-trace walk over the skip field
+    (``occupancy_skip_field``): sample in occupied cells, leap over empty
+    space by whole recurrence steps, until every ray has its slab or has
+    left the volume.
+
+Training jitters each ray's start: ``noise`` [N] uniforms move t0 by
+``noise * dt(t0)``, as the JAX package's ``perturb`` does with its own draw.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,6 +33,7 @@ class MarchResult(NamedTuple):
     dts: torch.Tensor  # [N, K] step sizes
     valid: torch.Tensor  # [N, K] bool
     count: torch.Tensor  # [N] number of valid samples (<= K)
+    iters: int = 0  # walk iterations run (march_rays_skip)
 
 
 def candidate_ts(t0: torch.Tensor, num: int, dt_min: float, dt_max: float, dt_gamma: float):
@@ -53,6 +63,12 @@ def candidate_ts(t0: torch.Tensor, num: int, dt_min: float, dt_max: float, dt_ga
     return ts, dts
 
 
+def _jittered_start(nears, noise, dt_gamma: float, dt_min: float, dt_max: float):
+    if noise is None:
+        return nears
+    return nears + torch.clamp(nears * dt_gamma, dt_min, dt_max) * noise
+
+
 def _mip_level(x_absmax: torch.Tensor, dt: torch.Tensor, grid_size: int, cascades: int):
     """max(mip_from_pos, mip_from_dt), raymarching.cu:42-54 (frexp exponents)."""
     _, e_pos = torch.frexp(x_absmax)
@@ -72,15 +88,18 @@ def march_rays(
     max_steps: int = 1024,
     slab: int = 128,
     grid_size: int = 128,
+    noise: Optional[torch.Tensor] = None,
 ) -> MarchResult:
-    """Sample up to ``slab`` occupied positions per ray (no jitter: serving).
+    """Sample up to ``slab`` occupied positions per ray.
 
-    dt_min = 2*sqrt(3)/max_steps, dt_max = 2*sqrt(3)*2^(CAS-1)/H, t0 = near.
+    dt_min = 2*sqrt(3)/max_steps, dt_max = 2*sqrt(3)*2^(CAS-1)/H, t0 = near
+    (+ dt(near) * noise when ``noise`` [N] is given).
     """
     cascades = occ_bits.shape[0]
     dt_min = 2.0 * SQRT3 / max_steps
     dt_max = 2.0 * SQRT3 * (2.0 ** (cascades - 1)) / grid_size
-    ts, dts = candidate_ts(nears, max_steps, dt_min, dt_max, dt_gamma)  # [N, S]
+    t0 = _jittered_start(nears, noise, dt_gamma, dt_min, dt_max)
+    ts, dts = candidate_ts(t0, max_steps, dt_min, dt_max, dt_gamma)  # [N, S]
 
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * ts[..., None]
     xyz = torch.clamp(xyz, -bound, bound)
@@ -114,3 +133,117 @@ def march_rays(
         valid=keep,
         count=count,
     )
+
+
+# The walk checks "any ray still marching?" (a host sync) every this many
+# iterations. Iterations after every ray is done record nothing, so the
+# samples are those of a check every iteration.
+_CHECK_EVERY = 4
+
+
+def march_rays_skip(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    nears: torch.Tensor,
+    fars: torch.Tensor,
+    occ_skip: torch.Tensor,  # [CAS, H^3] uint8 skip codes (occupancy_skip_field)
+    *,
+    bound: float,
+    dt_gamma: float = 0.0,
+    max_steps: int = 1024,
+    slab: int = 128,
+    grid_size: int = 128,
+    max_iters: int = 0,
+    noise: Optional[torch.Tensor] = None,
+) -> MarchResult:
+    """Sphere-tracing marcher over the skip field (same contract as
+    ``march_rays``).
+
+    Each iteration either samples (skip code 0: occupied cell, advance by
+    the dt recurrence) or leaps over empty space (code v >= 1: past the cell
+    boundary plus v - 2 safe cells) by a whole number of recurrence steps, so
+    landings stay on the jittered lattice; a leap stops at the first lattice
+    point past a dt phase boundary. The walk ends when every ray has
+    ``slab`` samples or has passed ``far``, or after ``max_iters``
+    iterations (default slab + 8 * grid_size).
+    """
+    n = rays_o.shape[0]
+    device = rays_o.device
+    cascades = occ_skip.shape[0]
+    dt_min = 2.0 * SQRT3 / max_steps
+    dt_max = 2.0 * SQRT3 * (2.0 ** (cascades - 1)) / grid_size
+    if max_iters <= 0:
+        max_iters = slab + 8 * grid_size
+
+    t = _jittered_start(nears.float(), noise, dt_gamma, dt_min, dt_max)
+    skip_flat = occ_skip.reshape(-1)
+    k_iota = torch.arange(slab, device=device)[None, :]
+    count = torch.zeros((n,), dtype=torch.int64, device=device)
+    out_t = torch.zeros((n, slab), device=device)
+    out_dt = torch.zeros((n, slab), device=device)
+    step_dir = (rays_d > 0).to(torch.int64)
+    d_safe = torch.where(rays_d.abs() < 1e-12, torch.sign(rays_d) + 1e-12, rays_d)
+
+    it = 0
+    while it < max_iters:
+        if it % _CHECK_EVERY == 0 and not bool(((t < fars) & (count < slab)).any()):
+            break
+        it += 1
+        alive = t < fars
+        dt = torch.clamp(t * dt_gamma, dt_min, dt_max)
+        xyz = torch.clamp(rays_o + rays_d * t[:, None], -bound, bound)
+        level = _mip_level(xyz.abs().amax(-1), dt, grid_size, cascades)
+        mip_bound = torch.clamp(torch.exp2(level.float()), max=bound)
+        cs = 2.0 * mip_bound / grid_size  # cell size at this level [N]
+        cell_f = 0.5 * (xyz / mip_bound[:, None] + 1.0) * grid_size
+        cell = torch.clamp(cell_f.to(torch.int64), 0, grid_size - 1)
+        flat = (
+            level.to(torch.int64) * grid_size**3
+            + cell[:, 0] * grid_size * grid_size
+            + cell[:, 1] * grid_size
+            + cell[:, 2]
+        )
+        v = skip_flat[flat]
+        occupied = (v == 0) & alive
+
+        # record the sample where occupied and count < slab
+        put = occupied & (count < slab)
+        mask_k = (k_iota == count[:, None]) & put[:, None]
+        out_t = torch.where(mask_k, t[:, None], out_t)
+        out_dt = torch.where(mask_k, dt[:, None], out_dt)
+        count = count + put.to(count.dtype)
+
+        # advance: one dt step through occupied cells; past the cell exit
+        # (+ safe extra cells) through empty space, in whole dt steps
+        next_corner = (cell + step_dir).float()
+        world_next = (next_corner / grid_size * 2.0 - 1.0) * mip_bound[:, None]
+        t_axes = (world_next - xyz) / d_safe
+        t_exit = torch.where(t_axes > 0, t_axes, torch.full_like(t_axes, math.inf)).amin(-1)
+        t_exit = torch.minimum(t_exit, SQRT3 * cs)  # guard degenerate geometry
+        extra = torch.clamp(v.float() - 2.0, min=0.0) * cs
+        s_want = t_exit + 1e-3 * cs + extra  # required safe advance
+        if dt_gamma <= 0.0:
+            adv_empty = (torch.floor(s_want / dt_min) + 1.0) * dt_min
+        else:
+            g = 1.0 + dt_gamma
+            t_lo = dt_min / dt_gamma  # below: dt pinned at dt_min
+            t_hi = dt_max / dt_gamma  # above: dt pinned at dt_max
+            m_lin = torch.floor(s_want / dt) + 1.0
+            m_lo_b = torch.clamp(torch.floor((t_lo - t) / dt_min) + 1.0, min=1.0)
+            t_pos = torch.clamp(t, min=1e-6)
+            m_geo = torch.ceil(torch.log1p(s_want / t_pos) / math.log(g))
+            m_geo_b = torch.ceil(torch.log(torch.clamp(t_hi / t_pos, min=1.0)) / math.log(g))
+            m_g = torch.minimum(torch.clamp(m_geo, min=1.0), torch.clamp(m_geo_b, min=1.0))
+            below = t * dt_gamma <= dt_min
+            above = t * dt_gamma >= dt_max
+            adv_empty = torch.where(
+                below,
+                torch.minimum(m_lin, m_lo_b) * dt,
+                torch.where(above, m_lin * dt, t * g**m_g - t),
+            )
+        t = t + torch.where(occupied, dt, adv_empty)
+        done = (count >= slab) | ~alive
+        t = torch.where(done & ~occupied, torch.maximum(t, fars), t)
+
+    keep = k_iota < count[:, None]
+    return MarchResult(ts=out_t, dts=out_dt, valid=keep, count=count, iters=it)

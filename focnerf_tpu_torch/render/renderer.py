@@ -4,10 +4,15 @@ Twin of focnerf_tpu/render/renderer.py:
   - ``render_rays``: uniform ``num_steps`` samples in [near, far]
     (nerf/renderer.py:126-238), composited through the fused kernel with
     no early exit; importance upsampling comes later;
-  - ``render_rays_occupancy``: occupancy-bitfield marching into a fixed
-    [N, slab] slab, one batched field evaluation, early-terminated
-    compositing through the fused kernel (nerf/renderer.py:243-354);
-  - ``render_image``: a Python loop over fixed-size ray chunks.
+  - ``render_rays_occupancy``: occupancy-bitfield marching (the ladder, or
+    with ``occ_skip`` the sphere-trace skip walk) into a fixed [N, slab]
+    slab, one batched field evaluation, early-terminated compositing through
+    the fused kernel (nerf/renderer.py:243-354). With ``perturb`` (training)
+    it takes its draws as tensors: the march start jitter ``noise`` [N] and
+    the stochastic-corner uniforms ``u`` [N * slab, n_stoch, K, 3], and it
+    is differentiable in the params;
+  - ``render_image``: a Python loop over fixed-size ray chunks, without
+    gradients.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from focnerf_tpu_torch.models.nerf import (
     encode_objfeat,
 )
 from focnerf_tpu_torch.ops.composite import composite_rays_fused
-from focnerf_tpu_torch.ops.marching import march_rays
+from focnerf_tpu_torch.ops.marching import march_rays, march_rays_skip
 
 
 def default_aabb(cfg: NeRFConfig, device) -> torch.Tensor:
@@ -111,20 +116,33 @@ def render_rays_occupancy(
     T_thresh: float = 1e-4,
     obj_feat=None,
     grid_size: int = 128,
+    occ_skip: Optional[torch.Tensor] = None,
+    perturb: bool = False,
+    noise: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
-    """Occupancy-accelerated render of rays [N, 3] (run_cuda's inference path).
+    """Occupancy-accelerated render of rays [N, 3] (run_cuda's path).
 
-    Depth is normalized to [0, 1] as clamp(depth - near) / (far - near).
+    ``occ_skip`` (the skip field of ``occ_bits``) selects the skip walk.
+    ``perturb`` jitters the march start by ``noise`` and, when the config
+    trains with stochastic corners, encodes with the draws ``u``. Depth is
+    normalized to [0, 1] as clamp(depth - near) / (far - near).
     """
     aabb = _aabb(cfg, aabb, rays_o.device)
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
-    m = march_rays(
-        rays_o, rays_d, nears, fars, occ_bits, bound=cfg.bound, dt_gamma=dt_gamma,
-        max_steps=max_steps, slab=slab, grid_size=grid_size,
+    if perturb and noise is None:
+        raise ValueError("perturb=True needs the march jitter draws (noise)")
+    common = dict(
+        bound=cfg.bound, dt_gamma=dt_gamma, max_steps=max_steps, slab=slab,
+        grid_size=grid_size, noise=noise if perturb else None,
     )
+    if occ_skip is not None:
+        m = march_rays_skip(rays_o, rays_d, nears, fars, occ_skip, **common)
+    else:
+        m = march_rays(rays_o, rays_d, nears, fars, occ_bits, **common)
     xyzs = rays_o[:, None, :] + rays_d[:, None, :] * m.ts[..., None]
     xyzs = torch.maximum(torch.minimum(xyzs, aabb[3:]), aabb[:3])
-    sigmas, geo_feat = density_fn(params, cfg, xyzs)
+    sigmas, geo_feat = density_fn(params, cfg, xyzs, u if perturb else None)
     sigmas = torch.where(m.valid, sigmas, torch.zeros_like(sigmas))
     dirs = rays_d[:, None, :].expand(xyzs.shape)
     rgbs = color_fn(params, cfg, dirs, geo_feat, _objfeat_enc(params, cfg, obj_feat))
@@ -140,6 +158,7 @@ def render_rays_occupancy(
         "weights_sum": weights_sum,
         "sigmas": sigmas,
         "n_samples": m.count,
+        "march_iters": m.iters,
     }
 
 
@@ -163,11 +182,13 @@ def render_image(
     dt_gamma: float = 0.0,
     max_steps: int = 1024,
     slab: int = 64,
+    occ_skip: Optional[torch.Tensor] = None,
 ):
     """Full-image render in chunks of ``max_ray_batch`` rays.
 
-    With ``occ_bits`` the rays go through ``render_rays_occupancy``, else
-    through ``num_steps`` uniform samples. The last chunk is padded with
+    With ``occ_bits`` the rays go through ``render_rays_occupancy`` (with
+    ``occ_skip`` through its skip walk), else through ``num_steps`` uniform
+    samples. The last chunk is padded with
     rays (o=0, d=+z). Returns (image [H, W, 3], depth [H, W]) on the params'
     device.
     """
@@ -191,7 +212,7 @@ def render_image(
             res = render_rays_occupancy(
                 params, cfg, o, d, occ_bits, dt_gamma=dt_gamma, max_steps=max_steps,
                 slab=slab, bg_color=bg_color, aabb=aabb, min_near=min_near,
-                obj_feat=obj_feat,
+                obj_feat=obj_feat, occ_skip=occ_skip,
             )
         else:
             res = render_rays(

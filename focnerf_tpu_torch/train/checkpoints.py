@@ -1,12 +1,14 @@
 """Checkpoint save/load with ``torch.save``.
 
-Twin of focnerf_tpu/train/checkpoints.py for serving. A checkpoint
-directory (``workspace_<obj>/checkpoints``, the reference's per-object
-convention) holds ``model_config.json`` in the JAX package's format and
-rolling ``ckpt_<step>.pt`` files, each a dict of ``step``, ``params``,
-``ema_params`` and, when the model trained with the occupancy grid,
-``occupancy`` (density_grid, mean_density, iter_density). Optimizer state
-comes with the training slice.
+Twin of focnerf_tpu/train/checkpoints.py. A checkpoint directory
+(``workspace_<obj>/checkpoints``, the reference's per-object convention)
+holds ``model_config.json`` in the JAX package's format and rolling
+``ckpt_<step>.pt`` files, each a dict of ``step``, ``params``,
+``ema_params`` and, from training, ``ema_count`` and ``optimizer`` (the
+Adam state dict), plus, when the model trained with the occupancy grid,
+``occupancy`` (density_grid, mean_density, iter_density). ``BestCheckpoint``
+keeps the train state of the best eval PSNR in ``<workspace>/best``, without
+the grid (nerf/utils.py:1434-1493).
 """
 
 from __future__ import annotations
@@ -39,6 +41,12 @@ def load_model_config(directory: str):
         return config_from_dict(json.load(f))
 
 
+def _atomic_save(payload: dict, path: str):
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
 def _to_cpu(tree):
     if torch.is_tensor(tree):
         return tree.detach().cpu()
@@ -66,13 +74,14 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
 
-    def save(self, step: int, params, ema_params, occupancy: Optional[OccupancyState] = None):
-        payload = {"step": int(step), "params": _to_cpu(params), "ema_params": _to_cpu(ema_params)}
+    def save(self, state: dict, occupancy: Optional[OccupancyState] = None):
+        """``state``: ``TrainState.state_dict()``, or for serving at least
+        ``step``, ``params`` and ``ema_params``."""
+        payload = _to_cpu(dict(state))
         if occupancy is not None:
             payload["occupancy"] = _to_cpu(occupancy._asdict())
-        tmp = self._path(step) + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, self._path(step))
+        step = int(payload["step"])
+        _atomic_save(payload, self._path(step))
         for old in self.steps()[: -self.max_keep] if self.max_keep > 0 else []:
             os.remove(self._path(old))
 
@@ -87,3 +96,30 @@ class CheckpointManager:
         occ = payload.get("occupancy")
         payload["occupancy"] = OccupancyState(**occ) if occ is not None else None
         return payload
+
+
+class BestCheckpoint:
+    """The eval-PSNR-driven best train state: ``best.pt`` and the PSNR it was
+    saved at in ``best_metric.json`` (no occupancy grid)."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+
+    def metric(self) -> Optional[float]:
+        path = os.path.join(self.directory, "best_metric.json")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return float(json.load(f)["psnr"])
+
+    def save(self, state: dict, psnr: float):
+        os.makedirs(self.directory, exist_ok=True)
+        _atomic_save(_to_cpu(dict(state)), os.path.join(self.directory, "best.pt"))
+        with open(os.path.join(self.directory, "best_metric.json"), "w") as f:
+            json.dump({"psnr": float(psnr), "step": int(state["step"])}, f)
+
+    def restore(self, device) -> Optional[dict]:
+        path = os.path.join(self.directory, "best.pt")
+        if not os.path.exists(path):
+            return None
+        return torch.load(path, map_location=device, weights_only=True)

@@ -1,25 +1,49 @@
-"""Trainer shell, serving subset: checkpoint restore and test-split rendering.
+"""Training orchestration: epochs, eval, occupancy maintenance, checkpoints.
 
-Twin of focnerf_tpu/train/trainer.py for what ``main_nerf --test`` runs:
-the constructor's restore (:237-254), ``_render_kwargs`` (:767-789), the
-``oneshot`` branch of ``_render_view`` (:409-419) and ``test`` (:844-880).
-Training and evaluation come with the training slice.
+Twin of focnerf_tpu/train/trainer.py for the ``main_nerf -O`` path: the
+constructor's checkpoint modes (:237-280), ``train`` with the occupancy
+cadence (update every ``update_extra_interval`` steps, :432-452), the
+bitfield / skip-field cache (:537-547) and the slab buckets (:454-475),
+``evaluate`` through the oneshot ``render_image`` with PSNR/SSIM and the
+best checkpoint (:791-842), and ``test`` (:844-880).
+
+Every draw comes from one ``torch.Generator`` on the training device,
+seeded by ``seed``. Not ported (refused when asked for): training without
+the occupancy grid, the ``iter``/``iter_dev`` eval renderers
+(render/iterative.py), coarse-to-fine, gradient-level phases, the TV term,
+the CLIP rand-pose branch and mesh export. ``steps_per_dispatch`` > 1 runs
+one step per dispatch (its fused form gives the same steps).
 """
 
 from __future__ import annotations
 
 import os
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from focnerf_tpu_torch import resolve_device
-from focnerf_tpu_torch.models.nerf import NeRFConfig, init_nerf_params
-from focnerf_tpu_torch.ops.occupancy import init_occupancy, occupancy_bitfield
+from focnerf_tpu_torch.models.nerf import NeRFConfig, density_fn, init_nerf_params
+from focnerf_tpu_torch.ops.occupancy import (
+    init_occupancy,
+    mark_untrained_grid,
+    occupancy_bitfield,
+    occupancy_draws,
+    occupancy_skip_field,
+    update_occupancy,
+)
 from focnerf_tpu_torch.render.renderer import render_image
-from focnerf_tpu_torch.train.checkpoints import CheckpointManager, save_model_config
+from focnerf_tpu_torch.train.checkpoints import BestCheckpoint, CheckpointManager, save_model_config
+from focnerf_tpu_torch.train.meters import PSNRMeter, SSIMMeter
+from focnerf_tpu_torch.train.state import TrainState
+from focnerf_tpu_torch.train.steps import step_draws, train_step_occupancy
 
-_SLICE2 = "training (slice 2 of the port)"
+_ITER_RENDERER = (
+    "eval_renderer {!r} (render/iterative.py) is not ported yet; "
+    "pass --eval_renderer oneshot"
+)
 
 
 class Trainer:
@@ -29,6 +53,14 @@ class Trainer:
         cfg: NeRFConfig,
         workspace: str = "workspace",
         *,
+        lr: float = 1e-2,
+        lr_net=None,
+        lr_warmup: int = 0,
+        alpha_loss: float = 0.0,
+        grad_clip: float = 0.0,
+        grad_level_phases: int = 0,
+        c2f: str = "",
+        iters: int = 30000,
         num_steps: int = 512,
         upsample_steps: int = 0,
         max_ray_batch: int = 4096,
@@ -37,64 +69,224 @@ class Trainer:
         max_steps: int = 1024,
         train_slab: int = 128,
         density_thresh: float = 10.0,
+        update_extra_interval: int = 16,
+        ema_decay: float = 0.95,
         min_near: float = 0.2,
+        color_space: str = "srgb",
+        tv_weight: float = 0.0,
+        bucket_slabs: bool = False,
+        skip_march: bool = False,
+        eval_interval: int = 50,
+        steps_per_dispatch: int = 1,
+        ckpt_interval: int = 1,
+        eval_save_images: bool = True,
+        eval_renderer: str = "oneshot",
         max_keep_ckpt: int = 2,
         use_checkpoint: str = "latest",
         seed: int = 0,
+        rand_pose: int = -1,
         device=None,
     ):
+        unported = {
+            "grad_level_phases > 1": grad_level_phases > 1,
+            "c2f": bool(c2f),
+            "tv_weight > 0": tv_weight > 0.0,
+            "rand_pose >= 0 (CLIP guidance)": rand_pose >= 0,
+        }
+        asked = [k for k, v in unported.items() if v]
+        if asked:
+            raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
         self.device = resolve_device(device)
         self.name = name
         self.cfg = cfg
         self.workspace = workspace
+        self.iters = iters
         self.num_steps = num_steps
         self.upsample_steps = upsample_steps
         self.max_ray_batch = max_ray_batch
+        self.use_occupancy = use_occupancy
         self.dt_gamma = dt_gamma
         self.max_steps = max_steps
         self.train_slab = train_slab
+        self.bucket_slabs = bucket_slabs
+        self.skip_march = skip_march
+        self._occ_cache = None  # bitfield or skip field, rebuilt per occupancy update
+        self._slab_buckets = sorted(
+            {min(1 << i, train_slab) for i in range(4, 11) if (1 << i) <= train_slab} | {train_slab}
+        )
+        self.active_slab = train_slab
+        self._mean_samples_ema = float(train_slab)
+        self._last_mean_samples = None
         self.density_thresh = density_thresh
+        self.update_extra_interval = update_extra_interval
         self.min_near = min_near
+        self.color_space = color_space
+        self.alpha_loss = alpha_loss
+        self.eval_interval = eval_interval
+        self.ckpt_interval = max(1, int(ckpt_interval))
+        self.eval_save_images = eval_save_images
+        self.eval_renderer = eval_renderer
+        self.epoch = 0
         self.global_step = 0
+        self.last_eval_step = -1
+        self.last_eval_results = None
+        self.step_losses: List[float] = []  # every step's loss, read once per epoch
+        self.march_iters: List[int] = []  # every step's skip-walk iterations
 
         os.makedirs(workspace, exist_ok=True)
         self.log_path = os.path.join(workspace, f"log_{name}.txt")
-        self.params = init_nerf_params(torch.Generator().manual_seed(seed), cfg, self.device)
-        self.ema_params = self.params
+        if steps_per_dispatch > 1:
+            self.log("[WARN] steps_per_dispatch > 1 (fused dispatch) is not ported; "
+                     "running one step per dispatch")
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        params = init_nerf_params(torch.Generator().manual_seed(seed), cfg, self.device)
+        self.state = TrainState(
+            params, lr=lr, iters=iters, lr_net=lr_net, warmup=lr_warmup, grad_clip=grad_clip,
+            ema_decay=ema_decay,
+        )
         self.occupancy = init_occupancy(cfg.bound, self.device) if use_occupancy else None
+        self.metrics = [PSNRMeter(), SSIMMeter()]
 
         ckpt_dir = os.path.join(workspace, "checkpoints")
         self.ckpt = CheckpointManager(ckpt_dir, max_keep=max_keep_ckpt)
         save_model_config(ckpt_dir, cfg)
+        self.best = BestCheckpoint(os.path.join(workspace, "best"))
+        best = self.best.metric()
+        self.best_psnr = best if best is not None else -np.inf
 
-        # modes: scratch | latest | latest_model (ref nerf/utils.py:775-793)
+        # modes: scratch | latest | latest_model | best | <explicit path>
+        # (ref nerf/utils.py:775-793)
         if use_checkpoint in ("latest", "latest_model"):
             restored = self.ckpt.restore(self.device)
             if restored is not None:
-                self.params, self.ema_params = restored["params"], restored["ema_params"]
-                if use_checkpoint == "latest":
-                    if restored["occupancy"] is not None and self.occupancy is not None:
-                        self.occupancy = restored["occupancy"]
-                    self.global_step = restored["step"]
+                self._adopt(restored, weights_only=use_checkpoint == "latest_model")
                 self.log(f"[INFO] resumed ({use_checkpoint}) from step {restored['step']}")
+        elif use_checkpoint == "best":
+            restored = self.best.restore(self.device)
+            if restored is not None:
+                self._adopt(restored)
+                self.log(f"[INFO] resumed best checkpoint (psnr={self.best_psnr:.2f}, "
+                         f"step {self.global_step})")
+            else:
+                self.log("[WARN] no best checkpoint found; starting from scratch")
         elif use_checkpoint in ("scratch", ""):
             pass
+        elif os.sep in use_checkpoint or os.path.isdir(use_checkpoint):
+            restored = CheckpointManager(use_checkpoint).restore(self.device)
+            if restored is not None:
+                self._adopt(restored)
         else:
             raise ValueError(
                 f"unknown checkpoint mode {use_checkpoint!r}; expected "
-                "scratch | latest | latest_model (best and explicit paths come with training)"
+                "scratch | latest | latest_model | best | <path>"
             )
+
+    def _adopt(self, restored: dict, weights_only: bool = False):
+        self.state.load_state_dict(restored, weights_only=weights_only)
+        if weights_only:
+            return
+        occ = restored.get("occupancy")
+        if occ is not None and self.occupancy is not None:
+            self.occupancy = occ
+        self.global_step = self.state.step
 
     def log(self, msg: str):
         print(msg)
         with open(self.log_path, "a") as f:
             f.write(msg + "\n")
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(f"Trainer.train: {_SLICE2}")
+    # ------------------------------------------------------------------ train
+    def _mark_untrained(self, train_dataset):
+        self.occupancy = mark_untrained_grid(
+            self.occupancy, train_dataset.poses, train_dataset.intrinsics, bound=self.cfg.bound
+        )
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError(f"Trainer.evaluate: {_SLICE2}")
+    def _maybe_update_occupancy(self):
+        if self.occupancy is None or self.global_step % self.update_extra_interval != 0:
+            return
+        full = int(self.occupancy.iter_density) < 16  # the reference's rule
+        draws = occupancy_draws(self.generator, self.occupancy.density_grid.shape[0], full,
+                                self.device)
+        params, cfg = self.state.params, self.cfg
+        self.occupancy = update_occupancy(
+            self.occupancy, lambda x: density_fn(params, cfg, x)[0], draws,
+            bound=cfg.bound, density_scale=cfg.density_scale,
+        )
+        self._occ_cache = None  # bitfield/skip field must be rebuilt
+        self._maybe_repick_slab()
+
+    def _maybe_repick_slab(self):
+        """Re-pick the slab bucket from the measured mean samples/ray (EMA),
+        from step 256 on (truncating before pruning matures collapses
+        quality, PERF.md)."""
+        if not (self.bucket_slabs and self.use_occupancy) or self._last_mean_samples is None:
+            return
+        self._mean_samples_ema = 0.8 * self._mean_samples_ema + 0.2 * float(self._last_mean_samples)
+        if self.global_step < 256:
+            return
+        want = 1.25 * self._mean_samples_ema
+        new = next((b for b in self._slab_buckets if b >= want), self.train_slab)
+        if new != self.active_slab:
+            self.log(f"[slab] mean samples/ray {self._mean_samples_ema:.1f} -> "
+                     f"bucket {self.active_slab} => {new}")
+            self.active_slab = new
+
+    def _occ_bits_for_batch(self):
+        if self._occ_cache is None:
+            bits = occupancy_bitfield(self.occupancy, self.density_thresh)
+            self._occ_cache = occupancy_skip_field(bits) if self.skip_march else bits
+        return self._occ_cache
+
+    def train_step_once(self, train_dataset):
+        """One optimizer step -> its metrics (the loss still on the device)."""
+        self._maybe_update_occupancy()
+        batch = train_dataset.train_batch(self.generator)
+        slab = self.active_slab
+        draws = step_draws(self.generator, self.cfg, batch["rays_o"].shape[0], slab, self.device)
+        metrics = train_step_occupancy(
+            self.state, batch, self._occ_bits_for_batch(), draws, cfg=self.cfg,
+            dt_gamma=self.dt_gamma, max_steps=self.max_steps, slab=slab,
+            min_near=self.min_near, color_space=self.color_space,
+            alpha_weight=self.alpha_loss, skip_field=self.skip_march,
+        )
+        self._last_mean_samples = metrics["mean_samples"]
+        self.global_step += 1
+        return metrics
+
+    def train(self, train_dataset, valid_dataset=None, max_epochs: int = 1,
+              steps_per_epoch: Optional[int] = None):
+        if self.occupancy is None:
+            raise NotImplementedError(
+                "training without the occupancy grid (--cuda_ray / -O) is not ported yet"
+            )
+        if steps_per_epoch is None:
+            steps_per_epoch = train_dataset.n_views
+        if self.epoch == 0 and self.global_step > 0 and steps_per_epoch > 0:
+            # resumed: continue the epoch numbering so the cadences line up
+            self.epoch = self.global_step // steps_per_epoch
+        self._mark_untrained(train_dataset)
+        for _ep in range(max_epochs):
+            self.epoch += 1
+            t0 = time.time()
+            losses = []
+            for _ in range(steps_per_epoch):
+                metrics = self.train_step_once(train_dataset)
+                losses.append(metrics["loss"])
+                self.march_iters.append(metrics["march_iters"])
+            epoch_losses = torch.stack(losses).tolist()  # one sync per epoch
+            self.step_losses += epoch_losses
+            self.log(f"[epoch {self.epoch}] loss={np.mean(epoch_losses):.6f} "
+                     f"steps={self.global_step} time={time.time() - t0:.1f}s")
+            if valid_dataset is not None and self.epoch % self.eval_interval == 0:
+                self.evaluate(valid_dataset, save_images=self.eval_save_images)
+            if self.epoch % self.ckpt_interval == 0 or _ep == max_epochs - 1:
+                self.save_checkpoint()
+
+    # ------------------------------------------------------------------ eval
+    def check_eval_renderer(self):
+        """Raise when an evaluation would need the unported iterative renderer."""
+        if self.eval_renderer in ("iter", "iter_dev") and self.occupancy is not None:
+            raise NotImplementedError(_ITER_RENDERER.format(self.eval_renderer))
 
     def _render_kwargs(self) -> dict:
         """render_image kwargs; the occupancy path whenever the model has a grid."""
@@ -105,24 +297,60 @@ class Trainer:
             min_near=self.min_near,
         )
         if self.occupancy is not None:
-            kw.update(
-                occ_bits=occupancy_bitfield(self.occupancy, self.density_thresh),
-                dt_gamma=self.dt_gamma,
-                max_steps=self.max_steps,
-                slab=max(self.train_slab, 64),
-            )
+            bits = occupancy_bitfield(self.occupancy, self.density_thresh)
+            kw.update(occ_bits=bits, dt_gamma=self.dt_gamma, max_steps=self.max_steps,
+                      slab=max(self.train_slab, 64))
+            if self.skip_march:
+                kw["occ_skip"] = occupancy_skip_field(bits)
         return kw
 
     def _render_view(self, params, view, dataset, render_kwargs):
-        """Render one test view -> (img [H, W, 3], depth [H, W])."""
+        """Render one eval/test view -> (img [H, W, 3], depth [H, W])."""
+        self.check_eval_renderer()
         return render_image(
             params, self.cfg, view["pose"], dataset.intrinsics, dataset.H, dataset.W,
             obj_feat=view.get("obj_feat"), bg_color=1.0, **render_kwargs,
         )
 
+    def evaluate(self, dataset, name: str = "val", save_images=None, use_ema: bool = True):
+        if save_images is None:
+            save_images = self.eval_save_images
+        params = self.state.ema_params if use_ema else self.state.params
+        for m in self.metrics:
+            m.clear()
+        out_dir = os.path.join(self.workspace, "validation")
+        os.makedirs(out_dir, exist_ok=True)
+        render_kwargs = self._render_kwargs()
+        for v in range(dataset.n_views):
+            view = dataset.eval_view(v)
+            img, _ = self._render_view(params, view, dataset, render_kwargs)
+            if "pixels" in view:
+                gt = view["pixels"].reshape(dataset.H, dataset.W, -1)
+                if gt.shape[-1] == 4:
+                    gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1 - gt[..., 3:])
+                # metrics on display-range images, as the saved PNG
+                pred = torch.clamp(img, 0.0, 1.0)
+                for m in self.metrics:
+                    m.update(pred, gt)
+            if save_images:
+                self._save_image(
+                    os.path.join(out_dir, f"{self.name}_{name}_{self.epoch:04d}_{v:04d}.png"),
+                    img.cpu().numpy(),
+                )
+        self.log(f"[eval epoch {self.epoch}] " + " | ".join(m.report() for m in self.metrics))
+        results = {m.name: m.measure() for m in self.metrics}
+        self.last_eval_step = self.global_step
+        self.last_eval_results = results
+        psnr = results["PSNR"] if self.metrics[0].vals else None
+        if psnr is not None and np.isfinite(psnr) and psnr > self.best_psnr:
+            self.best_psnr = float(psnr)
+            self.best.save(self.state.state_dict(), self.best_psnr)
+            self.log(f"[INFO] new best checkpoint (PSNR {self.best_psnr:.2f})")
+        return results
+
     def test(self, dataset, write_video: bool = True, use_ema: bool = True, save_gt: bool = False):
         """Render the test split to ``<workspace>/results``; returns uint8 frames."""
-        params = self.ema_params if use_ema else self.params
+        params = self.state.ema_params if use_ema else self.state.params
         out_dir = os.path.join(self.workspace, "results")
         os.makedirs(out_dir, exist_ok=True)
         render_kwargs = self._render_kwargs()
@@ -155,3 +383,10 @@ class Trainer:
             arr = arr / max(float(arr.max()), 1e-6)
             arr = np.repeat(arr[..., None], 3, -1)
         write_image(path, (np.clip(arr, 0, 1) * 255).astype(np.uint8))
+
+    # ------------------------------------------------------------------ ckpt/mesh
+    def save_checkpoint(self):
+        self.ckpt.save(self.state.state_dict(), self.occupancy)
+
+    def save_mesh(self, resolution: int = 256, threshold: float = 10.0, path: Optional[str] = None):
+        raise NotImplementedError("mesh export (utils/mesh_extract.py) is not ported yet")

@@ -13,12 +13,14 @@ import torch
 
 def device_events(prof):
     """(name, ms) of every device-side event (kernel, copy, fill) in a
-    torch.profiler trace; host-side operator events are left out, so no
+    torch.profiler trace. Host-side operator events are left out, and so are
+    the device-side spans of annotations (``record_function`` ranges such as
+    ``Optimizer.step#Adam.step``), which cover kernels already listed: no
     device time is counted twice."""
     return [
         (e.name, e.time_range.elapsed_us() / 1e3)
         for e in prof.events()
-        if str(e.device_type).endswith("CUDA")
+        if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)
     ]
 
 

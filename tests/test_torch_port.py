@@ -1,5 +1,5 @@
-"""Port package hygiene on the CPU: it imports no JAX (f), its kernel module
-imports without nvcc (g), the kernel agrees with its plain version on a card
+"""Port package hygiene on the CPU: it imports no JAX (f), its kernel modules
+import without nvcc (g), each kernel agrees with its plain version on a card
 (skipped without one), and the PNG codec and option set match their twins."""
 
 import dataclasses
@@ -36,12 +36,16 @@ def test_port_imports_no_jax():
 
 
 def test_kernel_module_imports_without_nvcc(monkeypatch):
-    from focnerf_tpu_torch.ops import _build, composite
+    from focnerf_tpu_torch.ops import _build, composite, hashgrid
 
     assert composite.composite_rays_fused.launches >= 0
-    path = _build.library_path("composite")
-    assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
-    assert os.path.exists(os.path.join(_build.CSRC_DIR, "composite.cu"))
+    assert composite.composite_rays_fused_backward.launches >= 0
+    assert hashgrid.hashgrid_table_grad.launches >= 0
+    assert _build.KERNEL_SOURCES == ("composite", "hashgrid_bwd")
+    for name in _build.KERNEL_SOURCES:
+        path = _build.library_path(name)
+        assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
+        assert os.path.exists(os.path.join(_build.CSRC_DIR, f"{name}.cu"))
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     if not os.path.exists("/usr/local/cuda/bin/nvcc"):
@@ -81,6 +85,70 @@ def test_kernel_matches_plain_on_card():
             want = (ref["image"], ref["weights_sum"], ref["depth"])
             for a, b in zip(got, want):  # fp32 sums in another order
                 torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_composite_backward_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from focnerf_tpu_torch.ops.composite import (
+        composite_rays,
+        composite_rays_fused,
+        composite_rays_fused_backward,
+    )
+
+    g = torch.Generator().manual_seed(1)
+    n, t = 1000, 128
+    sig = torch.rand(n, t, generator=g) * 50
+    sig[7, 3] = float("inf")
+    rgb = torch.rand(n, t, 3, generator=g)
+    dts = torch.rand(n, t, generator=g) * 0.02 + 0.003
+    ts = torch.cumsum(dts, -1)
+    bg = torch.rand(n, 3, generator=g)
+    cot = [torch.randn(s, generator=g).cuda() for s in ((n, 3), (n,), (n,))]
+    sig, rgb, dts, ts, bg = (x.cuda() for x in (sig, rgb, dts, ts, bg))
+    for thresh in (0.0, 1e-4):
+        grads = []
+        for fn in ("kernel", "plain"):
+            s, c = sig.clone().requires_grad_(), rgb.clone().requires_grad_()
+            if fn == "kernel":
+                before = composite_rays_fused_backward.launches
+                out = composite_rays_fused(s, c, dts, ts, bg_color=bg, T_thresh=thresh)
+            else:
+                o = composite_rays(s, c, dts, ts, bg_color=bg, T_thresh=thresh)
+                out = (o["image"], o["weights_sum"], o["depth"])
+            sum((a * b).sum() for a, b in zip(out, cot)).backward()
+            grads.append((s.grad, c.grad))
+        torch.cuda.synchronize()
+        assert composite_rays_fused_backward.launches == before + 1
+        for a, b in zip(*grads):  # fp32 sums in another order
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_table_grad_kernel_matches_index_add_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from focnerf_tpu_torch.models.nerf import NeRFConfig
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    spec = NeRFConfig(bound=2.0, stochastic_corners=1, stochastic_min_size=1).grid_spec
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(20000, 3, generator=g)
+    u = torch.rand(20000, spec.num_levels, 1, 3, generator=g)
+    table = torch.zeros(spec.table_rows, spec.level_dim)
+    _, rows, weights = thg._encode(table, x, spec, u, residuals=True)
+    cot = torch.randn(20000, spec.output_dim, generator=g)
+    cols = thg.col_levels(spec, True)
+    want = thg.hashgrid_table_grad(rows, weights, cot, cols, spec.table_rows)
+    before = thg.hashgrid_table_grad.launches
+    got = thg.hashgrid_table_grad(rows.cuda(), weights.cuda(), cot.cuda(), cols, spec.table_rows)
+    torch.cuda.synchronize()
+    assert thg.hashgrid_table_grad.launches == before + 1
+    # fp32 atomics add in no fixed order: compare to the largest row sum
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got.cpu() == 0, want == 0)
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])

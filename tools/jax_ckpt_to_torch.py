@@ -6,10 +6,12 @@ This is how a model trained by the JAX package is served by the port:
   python -m focnerf_tpu_torch.apps.main_nerf <scene> --test -O --workspace ws_torch
 
 It restores the orbax checkpoint with the JAX package (its
-``model_config.json`` gives the architecture), hands the params, EMA params
-and occupancy grid to ``focnerf_tpu_torch.interop`` as numpy arrays, and
-writes the port's ``ckpt_<step>.pt`` beside the same ``model_config.json``.
-Runs on the CPU; needs both packages.
+``model_config.json`` gives the architecture), hands the train state (params,
+Adam moments, EMA params and counters) and the occupancy grid to
+``focnerf_tpu_torch.interop`` as numpy arrays, and writes the port's
+``ckpt_<step>.pt`` beside the same ``model_config.json``: the port serves it
+with ``--test`` and resumes training from it with ``--ckpt latest``. Runs on
+the CPU; needs both packages.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def convert(src: str, dst: str, step=None) -> int:
     from focnerf_tpu.train.checkpoints import CheckpointManager as JaxCheckpointManager
     from focnerf_tpu.train.checkpoints import load_model_config
     from focnerf_tpu.train.state import create_train_state, make_optimizer
-    from focnerf_tpu_torch.interop import config_from_dict, occupancy_from_jax, params_from_jax
+    from focnerf_tpu_torch.interop import config_from_dict, occupancy_from_jax, train_state_from_jax
     from focnerf_tpu_torch.train.checkpoints import CheckpointManager, save_model_config
 
     jcfg = load_model_config(src)
@@ -51,16 +53,18 @@ def convert(src: str, dst: str, step=None) -> int:
     with open(os.path.join(src, "model_config.json")) as f:
         cfg = config_from_dict(json.load(f))
     to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
-    cpu = "cpu"
-    params = params_from_jax(to_np(state.params), cfg, cpu)
-    ema = params_from_jax(to_np(state.ema_params), cfg, cpu)
+    adam = state.opt_state[0]  # optax adam: (ScaleByAdamState, ScaleByScheduleState)
+    tstate = train_state_from_jax(
+        params=to_np(state.params), mu=to_np(adam.mu), nu=to_np(adam.nu), count=int(adam.count),
+        ema_params=to_np(state.ema_params), ema_count=int(state.ema_count),
+        step=int(state.step), cfg=cfg, device="cpu",
+    )
     occupancy = None
     if occ is not None:
-        occupancy = occupancy_from_jax(to_np(occ._asdict()), cfg.bound, cpu)
+        occupancy = occupancy_from_jax(to_np(occ._asdict()), cfg.bound, "cpu")
     save_model_config(dst, cfg)
-    out_step = int(state.step)
-    CheckpointManager(dst).save(out_step, params, ema, occupancy)
-    return out_step
+    CheckpointManager(dst).save(tstate.state_dict(), occupancy)
+    return tstate.step
 
 
 def main(argv=None):
