@@ -13,8 +13,12 @@ non-zero exit code and no result line:
      the shapes of the path that runs it, with its time, the plain version's
      time, the library call's time where one PyTorch call computes the same
      function, and the least time the card could take (its bound):
-     the composite forward and backward at [4096, 128], and the hash-table
-     gradient scatter fed by a stochastic encode of 4096 x 128 points;
+     the composite forward at [4096, 128]; the composite backward on the
+     inputs its lane groups make risky (T 16, 32, 100, 128; inf spikes at
+     chunk starts), timed at [4096, 128] and [4096, 16]; the hash-table
+     gradient scatter on the -O encode of 4096 x 128 and 4096 x 16 points,
+     on one level-0 cell, on the exact 8-corner layout and at one and four
+     channels, timed at the two -O shapes;
   4. serving: a blender-layout scene with 800x800 test views, a checkpoint
      of the default full-width model (seeded weights; the density grid is
      the field's sigma at every cell centre) and
@@ -29,7 +33,9 @@ non-zero exit code and no result line:
      from the trained checkpoint (a trained, sparse grid), and 5 more steps
      are profiled: stage times, the device's busy share and top kernels;
      nvidia-smi samples the SM clock beside each timed training window and
-     the table-gradient timing;
+     the table-gradient timing; on one train step at each of the slabs 128,
+     32 and 16, the composite backward must mask (T_in < T_thresh) exactly
+     the samples the forward's loop masks;
   6. reference: one small view rendered on the card (kernel) and on the CPU
      (plain versions) must agree, through the occupancy path and through the
      uniform path of ``main_nerf --test`` without ``-O``; and one train
@@ -124,15 +130,24 @@ def phase_build():
           f"({', '.join(_build.KERNEL_SOURCES)}, one nvcc each, in parallel)")
 
 
-def composite_inputs():
-    """A [4096, 128] chunk on the card: sigma U[0, 50] with inf spikes
-    (trunc_exp's fp32 overflow), rgb, dt, t and a per-ray background."""
+def composite_inputs(t: int = 128, thin: bool = False):
+    """A [4096, t] chunk on the card: sigma U[0, 50] with inf spikes
+    (trunc_exp's fp32 overflow), rgb, dt, t and a per-ray background.
+    ``thin``: every fourth ray's sigma is scaled by 1e-3, so those rays keep
+    their transmittance to the end of the row, and more inf spikes sit on
+    such rays at samples 16, 32 and 64 (where the backward kernel's lane
+    groups start a chunk)."""
     import torch
 
     g = torch.Generator().manual_seed(0)
-    n, t = CHUNK, 128
+    n = CHUNK
     sig = torch.rand(n, t, generator=g) * 50.0
-    sig[11, 5] = float("inf")
+    if thin:
+        sig[::4] *= 1e-3
+        for k, ray in ((16, 400), (32, 404), (64, 408)):
+            if k < t:
+                sig[ray, k] = float("inf")
+    sig[11, min(5, t - 1)] = float("inf")
     sig[200, 0] = float("inf")
     rgb = torch.rand(n, t, 3, generator=g)
     dts = torch.rand(n, t, generator=g) * 0.05 + 0.003
@@ -209,75 +224,101 @@ def phase_composite_kernel() -> dict:
 
 
 def phase_composite_backward_kernel() -> dict:
-    """The backward kernel vs autograd of composite_rays at [4096, 128],
-    T_thresh 1e-4 (training's), a per-pixel background and inf spikes."""
+    """The backward kernel vs autograd of composite_rays: at T 16, 32, 100
+    (a ragged last chunk) and 128, T_thresh 0 and 1e-4, scalar and per-ray
+    backgrounds, inf spikes at chunk starts; then timed at [4096, 128] and
+    [4096, 16] (the training slabs' ends), T_thresh 1e-4 (training's), a
+    per-pixel background."""
     import torch
 
     from focnerf_tpu_torch.ops.composite import (
         composite_rays,
         composite_rays_fused,
         composite_rays_fused_backward,
+        group_width,
     )
     from focnerf_tpu_torch.utils.measure import device_ms
 
-    sig, rgb, dts, ts, bg = composite_inputs()
-    n, t = sig.shape
-    thresh = 1e-4
-    g = torch.Generator(device="cuda").manual_seed(1)
-    cot = tuple(torch.randn(s, generator=g, device="cuda") for s in ((n, 3), (n,), (n,)))
-    with torch.no_grad():
-        outs = composite_rays_fused(sig, rgb, dts, ts, bg_color=bg, T_thresh=thresh)
+    def case(t, thin, thresh, scalar_bg):
+        sig, rgb, dts, ts, bg = composite_inputs(t, thin)
+        bg = 1.0 if scalar_bg else bg
+        n = sig.shape[0]
+        g = torch.Generator(device="cuda").manual_seed(1)
+        cot = tuple(torch.randn(s, generator=g, device="cuda") for s in ((n, 3), (n,), (n,)))
+        with torch.no_grad():
+            outs = composite_rays_fused(sig, rgb, dts, ts, bg_color=bg, T_thresh=thresh)
 
-    def kernel():
-        return composite_rays_fused_backward(sig, rgb, dts, ts, bg, outs, cot, T_thresh=thresh)
+        def kernel():
+            return composite_rays_fused_backward(sig, rgb, dts, ts, bg, outs, cot, T_thresh=thresh)
 
-    def plain():
-        s, c = sig.detach().requires_grad_(), rgb.detach().requires_grad_()
-        out = composite_rays(s, c, dts, ts, bg_color=bg, T_thresh=thresh)
-        return torch.autograd.grad((out["image"], out["weights_sum"], out["depth"]), (s, c), cot)
+        def plain():
+            s, c = sig.detach().requires_grad_(), rgb.detach().requires_grad_()
+            out = composite_rays(s, c, dts, ts, bg_color=bg, T_thresh=thresh)
+            return torch.autograd.grad((out["image"], out["weights_sum"], out["depth"]), (s, c), cot)
 
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-    if not all(torch.isfinite(a).all() for a in got):
-        raise AssertionError("composite backward kernel: non-finite gradient")
-    # limit 1e-5: fp32 sums in another order (the kernel's suffix sums are a
-    # total less a running prefix)
-    print(f"[kernel] composite_rays_fused_backward max_abs_err dsigma {errs[0]:.3g}, drgb {errs[1]:.3g} "
-          "vs autograd of the plain version (limit 1e-5)")
-    if not max(errs) <= 1e-5:
+        return sig, dts, kernel, plain
+
+    errs = {}
+    for t in (16, 32, 100, 128):
+        for thresh in (0.0, 1e-4):
+            for scalar_bg in (True, False):
+                _, _, kernel, plain = case(t, True, thresh, scalar_bg)
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                if not all(torch.isfinite(a).all() for a in got):
+                    raise AssertionError(f"composite backward kernel: non-finite gradient at T={t}, "
+                                         f"T_thresh={thresh}, scalar bg {scalar_bg}")
+                errs[(t, thresh, scalar_bg)] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    err = max(errs.values())
+    # limit 1e-5: fp32 sums in another order (the kernel's prefix of w*gw is
+    # a shuffle-tree scan, its suffix sums a total less a prefix)
+    print(f"[kernel] composite_rays_fused_backward max_abs_err {err:.3g} vs autograd of the plain version "
+          f"(limit 1e-5) over {len(errs)} cases: T 16/32/100/128 x T_thresh 0/1e-4 x scalar/per-ray bg, "
+          f"a quarter of the rays thin, inf spikes at samples 0, 5, 16, 32, 64; worst "
+          f"{max(errs, key=errs.get)}")
+    if not err <= 1e-5:
         raise AssertionError(f"composite backward kernel disagrees with its plain version: {errs}")
-    ms, span = device_ms(kernel)
-    plain_ms, plain_span = device_ms(plain)
-    # bound: read 24 B of every sample read (as the forward), per ray the
-    # background, the saved outputs and their cotangents (52 B); write
-    # dsigma and drgb for every sample (16 B, zeros past the early exit);
-    # ~35 fp32 operations (two exp) per sample read
-    read = samples_read(sig, dts, thresh)
-    nbytes = read * 24 + n * 52 + n * t * 16
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = read * 35 / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[kernel] composite_rays_fused_backward [{n},{t}] T_thresh=1e-4: device {ms:.5f} ms "
-          f"(call span {span:.4f} ms), plain (forward + autograd backward) device {plain_ms:.5f} ms "
-          f"(span {plain_span:.4f} ms), bound {bound_ms:.5f} ms ({read} samples read, {nbytes} B)")
+
+    thresh, rows = 1e-4, {}
+    for t in (128, 16):
+        sig, dts, kernel, plain = case(t, False, thresh, False)
+        n = sig.shape[0]
+        ms, span = device_ms(kernel)
+        plain_ms, plain_span = device_ms(plain)
+        # bound: read 24 B of every sample read (as the forward), per ray the
+        # background, the saved outputs and their cotangents (52 B); write
+        # dsigma and drgb for every sample (16 B, zeros past the early exit);
+        # ~35 fp32 operations (two exp) per sample read
+        read = samples_read(sig, dts, thresh)
+        nbytes = read * 24 + n * 52 + n * t * 16
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = read * 35 / FP32_OPS_PER_S * 1e3
+        rows[t] = (ms, plain_ms, max(bytes_ms, ops_ms), bytes_ms >= ops_ms)
+        print(f"[kernel] composite_rays_fused_backward [{n},{t}] T_thresh=1e-4, {group_width(t)} lanes per ray: "
+              f"device {ms:.5f} ms (call span {span:.4f} ms), plain (forward + autograd backward) device "
+              f"{plain_ms:.5f} ms (span {plain_span:.4f} ms), bound {rows[t][2]:.5f} ms ({read} samples "
+              f"read, {nbytes} B)")
+    ms, plain_ms, bound_ms, by_bytes = rows[128]
     return {
         "name": "composite_rays_fused_backward",
         "route": "cuda",
         "source": "focnerf_tpu_torch/csrc/composite.cu",
         "replaces": "focnerf_tpu/ops/composite_pallas.py:110",
-        "max_abs_err": max(errs),
+        "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": "bytes" if by_bytes else "operations",
         "library_ms": None,  # no single PyTorch call computes this function
     }
 
 
-def table_grad_inputs(cfg):
-    """Rows and weights of a stochastic K=1 encode (the -O training encode)
-    of 4096 rays x 128 samples through the bound box, and a cotangent."""
+def table_grad_inputs(cfg, samples: int = 128, stochastic: bool = True, one_cell: bool = False):
+    """Rows and weights of the encode of 4096 rays x ``samples`` points
+    through the bound box (stochastic K=1 corners: the -O training encode;
+    else 8 exact corners per level), and a cotangent. ``one_cell``: every
+    point lies in one level-0 cell instead, the most duplicated rows an
+    input can have."""
     import numpy as np
     import torch
 
@@ -294,74 +335,115 @@ def table_grad_inputs(cfg):
     d = d / d.norm(dim=-1, keepdim=True)
     o = pose[:3, 3].expand(d.shape)
     near, far = near_far_from_aabb(o, d, default_aabb(cfg, dev), 0.2)
-    frac = (torch.arange(128, device=dev) + 0.5) / 128
+    frac = (torch.arange(samples, device=dev) + 0.5) / samples
     x = o[:, None] + d[:, None] * (near[:, None] + (far - near)[:, None] * frac)[..., None]
     x01 = ((x + cfg.bound) / (2 * cfg.bound)).reshape(-1, 3)
-    u = torch.rand((x01.shape[0], len(thg.stochastic_levels(spec)), 1, 3), generator=g, device=dev)
+    if one_cell:  # level 0's cell [8, 9)^3 of pos = x * scale + 0.5
+        scale = thg._level_scale(spec, 0)
+        x01 = (7.5 + 0.98 * torch.rand(x01.shape, generator=g, device=dev)) / scale
+    u = None
+    if stochastic:
+        u = torch.rand((x01.shape[0], len(thg.stochastic_levels(spec)), 1, 3), generator=g, device=dev)
     table = torch.zeros((spec.table_rows, spec.level_dim), device=dev)
     _, rows, weights = thg._encode(table, x01, spec, u, residuals=True)
     cot = torch.randn((x01.shape[0], spec.output_dim), generator=g, device=dev)
-    return rows, weights, cot, thg.col_levels(spec, True), spec.table_rows
+    return rows, weights, cot, thg.col_levels(spec, stochastic), spec.table_rows
 
 
 def phase_table_grad_kernel(cfg) -> dict:
-    """hashgrid_table_grad (kernel) vs its plain version (index_add_)."""
+    """hashgrid_table_grad (kernel) vs its plain version (index_add_): the
+    -O encode at 4096 x 128 and 4096 x 16 points, every point in one
+    level-0 cell, the exact layout (8 corners per level), and one channel
+    per level (the scalar-atomic path) and four (two float2 atomics a row);
+    then timed at the two -O shapes."""
+    import dataclasses
+
     import torch
 
     from focnerf_tpu_torch.ops import hashgrid as thg
     from focnerf_tpu_torch.utils.measure import device_ms
 
-    rows, weights, cot, cols, n_rows = table_grad_inputs(cfg)
-    m, J = rows.shape
-    C = cfg.level_dim
-    col_level = torch.tensor(cols, dtype=torch.int32, device=rows.device)
+    cfg1 = dataclasses.replace(cfg, level_dim=1)  # --grid_featdim 1
+    cfg4 = dataclasses.replace(cfg, level_dim=4)  # --grid_featdim 4
+    cases = {
+        "-O 4096x128": (cfg, dict(samples=128)),
+        "-O 4096x16": (cfg, dict(samples=16)),
+        "one level-0 cell 4096x16": (cfg, dict(samples=16, one_cell=True)),
+        "exact 8 corners 4096x16": (cfg, dict(samples=16, stochastic=False)),
+        "C=1 -O 4096x128": (cfg1, dict(samples=128)),
+        "C=4 -O 4096x16": (cfg4, dict(samples=16)),
+    }
+    worst = 0.0
+    for label, (c, kw) in cases.items():
+        rows, weights, cot, cols, n_rows = table_grad_inputs(c, **kw)
+        C = c.level_dim
+        col_level = torch.tensor(cols, dtype=torch.int32, device=rows.device)
+        got = thg.hashgrid_table_grad(rows, weights, cot, cols, n_rows)
+        want = thg.table_grad_plain(rows, weights, cot, col_level, n_rows, C)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / scale
+        touched = int((want != 0).any(-1).sum())
+        print(f"[kernel] hashgrid_table_grad {label} ({rows.shape[0]} points x {rows.shape[1]} columns, C={C}): "
+              f"max_abs_err {rel * scale:.3g}, {rel:.3g} of max|d_table| {scale:.3g}; "
+              f"{touched} of {n_rows} rows touched")
+        # limit 1e-5 relative: fp32 atomics and warp sums in no fixed order
+        if not (rel <= 1e-5 and torch.equal(got == 0, want == 0)):
+            raise AssertionError(f"table-gradient kernel disagrees with index_add_ on {label}: {rel}")
+        worst = max(worst, rel * scale)
+    del rows, weights, cot, got, want
 
-    def kernel():
-        return thg.hashgrid_table_grad(rows, weights, cot, cols, n_rows)
+    rows_by_shape = {}
+    for samples in (128, 16):
+        rows, weights, cot, cols, n_rows = table_grad_inputs(cfg, samples=samples)
+        m, J = rows.shape
+        C = cfg.level_dim
+        col_level = torch.tensor(cols, dtype=torch.int32, device=rows.device)
+        contrib = (weights[..., None] * cot.reshape(m, -1, C).index_select(1, col_level)).reshape(-1, C)
+        flat_rows = rows.reshape(-1)
 
-    def plain():
-        return thg.table_grad_plain(rows, weights, cot, col_level, n_rows, C)
+        def kernel():
+            return thg.hashgrid_table_grad(rows, weights, cot, cols, n_rows)
 
-    contrib = (weights[..., None] * cot.reshape(m, -1, C).index_select(1, col_level)).reshape(-1, C)
-    flat_rows = rows.reshape(-1)
+        def plain():
+            return thg.table_grad_plain(rows, weights, cot, col_level, n_rows, C)
 
-    def library():  # index_add_ alone, on contributions made beforehand
-        return torch.zeros((n_rows, C), device=rows.device).index_add_(0, flat_rows, contrib)
+        def library():  # index_add_ alone, on contributions made beforehand
+            return torch.zeros((n_rows, C), device=rows.device).index_add_(0, flat_rows, contrib)
 
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    scale = float(want.abs().max())
-    rel = float((got - want).abs().max()) / scale
-    touched = int((want != 0).any(-1).sum())
-    print(f"[kernel] hashgrid_table_grad max_abs_err {rel * scale:.3g}, {rel:.3g} of max|d_table| "
-          f"{scale:.3g} vs index_add_ (limit 1e-5 relative: fp32 atomics in no fixed order); "
-          f"{touched} of {n_rows} rows touched")
-    if not (rel <= 1e-5 and torch.equal(got == 0, want == 0)):
-        raise AssertionError(f"table-gradient kernel disagrees with index_add_: {rel}")
-    with SMClocks() as clocks:
-        ms, span = device_ms(kernel)
-        plain_ms, plain_span = device_ms(plain)
-        lib_ms, lib_span = device_ms(library)
-    # bound: read each entry's row and weight (8 B) and the cotangent once,
-    # write the whole table gradient once
-    nbytes = m * J * 8 + cot.numel() * 4 + n_rows * C * 4 + J * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = m * J * C * 2 / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[kernel] hashgrid_table_grad [{m} points x {J} levels -> {n_rows} x {C}]: device {ms:.5f} ms "
-          f"(call span {span:.4f} ms, zero fill included), plain device {plain_ms:.5f} ms "
-          f"(span {plain_span:.4f} ms), index_add_ alone {lib_ms:.5f} ms (span {lib_span:.4f} ms), "
-          f"bound {bound_ms:.5f} ms ({nbytes} B); {clocks.summary()}")
+        with SMClocks() as clocks:
+            ms, span = device_ms(kernel)
+            plain_ms, plain_span = device_ms(plain)
+            lib_ms, lib_span = device_ms(library)
+        # bound: read each entry's row and weight (8 B) and the cotangent once,
+        # write the whole table gradient once
+        nbytes = m * J * 8 + cot.numel() * 4 + n_rows * C * 4 + J * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = m * J * C * 2 / FP32_OPS_PER_S * 1e3
+        rows_by_shape[samples] = (ms, plain_ms, lib_ms, max(bytes_ms, ops_ms), bytes_ms >= ops_ms)
+        print(f"[kernel] hashgrid_table_grad [{m} points x {J} levels -> {n_rows} x {C}]: device {ms:.5f} ms "
+              f"(call span {span:.4f} ms, zero fill included), plain device {plain_ms:.5f} ms "
+              f"(span {plain_span:.4f} ms), index_add_ alone {lib_ms:.5f} ms (span {lib_span:.4f} ms), "
+              f"bound {max(bytes_ms, ops_ms):.5f} ms ({nbytes} B); {clocks.summary()}")
+        # where the kernel's time goes: the zero fill alone, and the kernel
+        # with every weight 0 (the tile loads and the fill, no atomics)
+        zero_w = torch.zeros_like(weights)
+        fill_ms, _ = device_ms(lambda: torch.zeros((n_rows, C), device=rows.device))
+        loads_ms, _ = device_ms(lambda: thg.hashgrid_table_grad(rows, zero_w, cot, cols, n_rows))
+        print(f"[kernel] hashgrid_table_grad [{m} points] breakdown: zero fill alone {fill_ms:.5f} ms, "
+              f"every weight 0 (tile loads + fill, no atomics) {loads_ms:.5f} ms, full kernel {ms:.5f} ms")
+        del rows, weights, cot, contrib, flat_rows, zero_w
+    ms, plain_ms, lib_ms, bound_ms, by_bytes = rows_by_shape[128]
     return {
         "name": "hashgrid_table_grad",
         "route": "cuda",
         "source": "focnerf_tpu_torch/csrc/hashgrid_bwd.cu",
         "replaces": "focnerf_tpu/ops/hashgrid_pallas.py:126",
-        "max_abs_err": rel * scale,
+        "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": "bytes" if by_bytes else "operations",
         "library_ms": lib_ms,
     }
 
@@ -634,27 +716,31 @@ def phase_reference(params, cfg, bits):
             raise AssertionError(f"reference {path}: card and CPU renders disagree")
 
 
-def phase_train_profile(trainer, scene: str, dev, steps: int = 5):
+def train_dataset(scene: str, dev):
+    """The training scene's train split, loaded as ``main_nerf -O`` loads it."""
+    from focnerf_tpu_torch.apps.main_nerf import mask_details_for
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.data.provider import NeRFDataset
+    from focnerf_tpu_torch.data.yolo_sidecar import load_sidecar
+
+    opt = parse_options([scene, "-O"])
+    return NeRFDataset(opt.dataset_options(), split="train", device=dev,
+                       mask_details=mask_details_for(load_sidecar(scene, "train"), OBJECT))
+
+
+def phase_train_profile(trainer, ds, dev, steps: int = 5):
     """Where a training step's time goes, on the trained model: each stage
     of ``steps`` steps timed with a synchronize around it, then the same
     steps under torch.profiler for the device's busy share and top kernels."""
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from focnerf_tpu_torch.apps.main_nerf import mask_details_for
-    from focnerf_tpu_torch.config import parse_options
     from focnerf_tpu_torch.core.geometry import near_far_from_aabb
-    from focnerf_tpu_torch.data.provider import NeRFDataset
-    from focnerf_tpu_torch.data.yolo_sidecar import load_sidecar
     from focnerf_tpu_torch.ops.marching import march_rays_skip
     from focnerf_tpu_torch.render.renderer import default_aabb
     from focnerf_tpu_torch.train.steps import occupancy_loss, step_draws
     from focnerf_tpu_torch.utils.measure import device_events
 
-    opt = parse_options([scene, "-O"])
-    ds = NeRFDataset(opt.dataset_options(), split="train", device=dev,
-                     mask_details=mask_details_for(load_sidecar(scene, "train"), OBJECT))
     state, cfg, slab = trainer.state, trainer.cfg, trainer.active_slab
     occ = trainer._occ_bits_for_batch()
     kw = dict(dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps, slab=slab, skip_field=True)
@@ -713,6 +799,89 @@ def phase_train_profile(trainer, scene: str, dev, steps: int = 5):
     for key in ("composite_forward_kernel", "composite_backward_kernel", "table_grad_kernel"):
         ms = sum(v for k, v in by_name.items() if key in k)
         print(f"[profile]   kernel {key}: {ms / steps:.4f} ms/step ({ms / busy:.2%} of device time)")
+
+
+def prefix_in(s, G: int):
+    """The optical depth entering each sample of ``s`` [n, t], in two
+    summation orders: the forward kernel's (one sample after another) and a
+    tree order (an inclusive Hillis-Steele scan over each chunk of G samples,
+    shifted by one, plus the carry of the chunks before)."""
+    import torch
+
+    n, t = s.shape
+    seq, tree = torch.empty_like(s), torch.empty_like(s)
+    acc = torch.zeros(n, device=s.device)
+    for i in range(t):
+        seq[:, i] = acc
+        acc = acc + s[:, i]
+    carry = torch.zeros(n, device=s.device)
+    for c0 in range(0, t, G):
+        x = torch.zeros(n, G, device=s.device)
+        x[:, :min(G, t - c0)] = s[:, c0:c0 + G]
+        d = 1
+        while d < G:
+            x = torch.cat([x[:, :d], x[:, d:] + x[:, :-d]], 1)
+            d *= 2
+        excl = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], 1)
+        tree[:, c0:c0 + G] = (carry[:, None] + excl)[:, :min(G, t - c0)]
+        carry = carry + x[:, -1]
+    return seq, tree
+
+
+def phase_backward_mask(trainer, ds, dev):
+    """On real chunks, one train step of the trained model at each of the
+    slabs 128, 32 and 16, as the composite backward receives them: the
+    backward kernel must mask (T_in < T_thresh) exactly the samples the
+    forward's loop masks, whose optical depth is a sum in sample order.
+    Beside it, how many samples a tree-ordered prefix would mask otherwise.
+    The mask shows in drgb = w * gI with gI = 1, where 1 - exp(-s) > 0."""
+    import torch
+
+    from focnerf_tpu_torch.ops import composite as tcomp
+    from focnerf_tpu_torch.train.steps import occupancy_loss, step_draws
+
+    chunks, kernel = [], tcomp.composite_rays_fused_backward
+
+    def capture(sigmas, rgbs, deltas, ts, bg_color, outputs, grads, *args):
+        chunks.append((sigmas.detach(), rgbs.detach(), deltas, ts, bg_color, *args))
+        return kernel(sigmas, rgbs, deltas, ts, bg_color, outputs, grads, *args)
+
+    capture.launches = 0  # the wrapper counts on whatever the module's name holds
+
+    state, cfg, occ = trainer.state, trainer.cfg, trainer._occ_bits_for_batch()
+    tcomp.composite_rays_fused_backward = capture
+    try:
+        for slab in (128, 32, 16):
+            batch = ds.train_batch(trainer.generator)
+            draws = step_draws(trainer.generator, cfg, batch["rays_o"].shape[0], slab, dev)
+            loss, _ = occupancy_loss(state.params, cfg, batch, occ, draws, dt_gamma=trainer.dt_gamma,
+                                     max_steps=trainer.max_steps, slab=slab, skip_field=True)
+            loss.backward()
+    finally:
+        tcomp.composite_rays_fused_backward = kernel
+    state.zero_grad()
+
+    bad = []
+    for sig, rgb, dts, ts, bg, density_scale, thresh in chunks:
+        n, t = sig.shape
+        with torch.no_grad():
+            outs = tcomp.composite_rays_fused(sig, rgb, dts, ts, bg, density_scale, thresh)
+        ones = torch.ones((n, 3), device=sig.device)
+        _, d_rgb = kernel(sig, rgb, dts, ts, bg, outs, (ones, None, None), density_scale, thresh)
+        s = dts * density_scale * sig
+        seq, tree = prefix_in(s, tcomp.group_width(t))
+        shown = s > 1e-6  # 1 - exp(-s) > 0 on every exp
+        want = torch.exp(-seq) >= thresh
+        got_bad = int(((d_rgb[..., 0] != 0) != want)[shown].sum())
+        tree_bad = int(((torch.exp(-tree) >= thresh) != want)[shown].sum())
+        print(f"[mask] composite backward on a real [{n},{t}] chunk, T_thresh {thresh:g}: "
+              f"{int(want[shown].sum())} live of {int(shown.sum())} samples with s > 1e-6; kernel's mask "
+              f"differs from the forward's on {got_bad}; a tree-ordered prefix would differ on {tree_bad} "
+              f"(its T_in exponent differs on {int((seq != tree)[shown].sum())} samples)")
+        if got_bad:
+            bad.append((t, got_bad))
+    if len(chunks) != 3 or bad:
+        raise AssertionError(f"composite backward mask: {len(chunks)} chunks, mismatches {bad}")
 
 
 def phase_train_reference(trainer):
@@ -792,7 +961,9 @@ def main() -> int:
     dev = torch.device("cuda")
     params, cfg, bits = phase_serving(work, dev)
     launches, trainer = phase_train(work, dev)
-    phase_train_profile(trainer, os.path.join(work, "train_scene"), dev)
+    ds = train_dataset(os.path.join(work, "train_scene"), dev)
+    phase_train_profile(trainer, ds, dev)
+    phase_backward_mask(trainer, ds, dev)
     phase_reference(params, cfg, bits)
     phase_train_reference(trainer)
     print(f"[done] all phases in {time.time() - t_start:.1f} s")

@@ -13,7 +13,7 @@
 //   image    = sum_i w_i * rgb_i  +  (1 - weights_sum) * bg
 //   weights_sum = sum_i w_i,  depth = sum_i w_i * ts_i
 //
-// Work split: one thread per ray, looping over its T samples. The optical
+// Forward work split: one thread per ray, looping over its T samples. The optical
 // depth prefix lives in a register and is built by shifting (the sample's
 // own s is added after its weight), so a sigma spike to inf keeps the
 // spiked sample's finite T_in and zeroes everything behind it. Since s >= 0,
@@ -21,35 +21,72 @@
 // sample can contribute: the loop breaks there, and the result is exact.
 // Sums are fp32.
 //
-// Backward (the training step's): one thread per ray, one front-to-back
-// pass that recomputes w_i and reads the saved forward outputs. With the
-// cotangents gI [3], gW, gD of (image, weights_sum, depth) and
-// gw_i = gI.rgb_i + gD*ts_i + gW - gI.bg (image depends on weights_sum
-// through the background blend):
+// Backward (the training step's). With the cotangents gI [3], gW, gD of
+// (image, weights_sum, depth) and gw_i = gI.rgb_i + gD*ts_i + gW - gI.bg
+// (image depends on weights_sum through the background blend):
 //
 //   dL/drgb_i = w_i * gI
 //   dL/ds_k   = T_in_k * exp(-s_k) * gw_k - sum_{i>k} w_i * gw_i
 //   dL/dsigma_k = dL/ds_k * dt_k * density_scale
 //
-// The suffix sum is the total sum_i w_i*gw_i less the running prefix, and
+// The suffix sum is the total sum_i w_i*gw_i less the inclusive prefix, and
 // the total comes from the saved outputs:
 // gI.(image - (1 - W)*bg) + gD*depth + gW*W - (gI.bg)*W. This is the form of
-// composite_rays_train_backward in torch-ngp's raymarching.cu. The pass
-// breaks where the forward broke; every later sample gets gradient 0, as
-// autodiff of the mask gives. ts and dt get no gradient (the marcher made
-// them).
+// composite_rays_train_backward in torch-ngp's raymarching.cu. A sample
+// with T_in < T_thresh gets gradient 0, as autodiff of the mask gives. ts
+// and dt get no gradient (the marcher made them).
+//
+// Backward work split: a group of G lanes per ray, G = min(32, the power of
+// two >= T) (the wrapper passes it), in blocks of 256 threads. The group
+// walks its ray in chunks of G samples; lane i takes sample c*G + i of chunk
+// c, so the group's loads and stores of sigma, dt, ts and dsigma are one
+// contiguous run, and those of rgb and drgb three. Each lane's optical-depth
+// prefix is the forward's to the bit: the group's s values are broadcast
+// one by one and every lane adds them in sample order, from the carry of
+// the chunks before, as the forward's loop does. So T_in and the T_thresh
+// mask are exactly the forward's (a tree-ordered scan rounds the prefix
+// differently and can move a sample across T_thresh), and an inf sigma
+// keeps its own finite T_in and zeroes what lies behind it. The
+// prefix of w*gw, which decides nothing, is a shuffle-tree scan. Once the
+// carried T_in is below T_thresh, no later sample can contribute (T_in
+// never rises): the group writes the rest of its row as zeros with
+// contiguous stores and stops.
 //
 // Bound: bytes. Forward: about 24 B read per sample (sigma, dt, ts, rgb: 6
 // floats) plus 20 B written per ray; at the serving chunk [4096, 128] that
 // is ~12.6 MB, ~3.8 us at 3.35 TB/s when every sample is read (early exit
 // reads fewer). Backward: the same reads plus 16 B written per sample (dsigma
-// and drgb are dense [N, T]). Row-major [N, T] inputs make neighbouring
-// threads read addresses T*4 B apart, so loads are not coalesced; that, not
-// arithmetic, is this simple kernel's known limit.
+// and drgb are dense [N, T]), most of them the zeros past the early exit.
+// The forward's row-major [N, T] inputs make neighbouring threads read
+// addresses T*4 B apart, so its loads are not coalesced; the backward's
+// lane groups read and write contiguous runs, and a [4096, 16] chunk is
+// 65,536 threads instead of 4,096.
 
 #include <cuda_runtime.h>
 
 namespace {
+
+// Lane groups: G consecutive lanes of a warp (G a power of two, 1..32),
+// aligned to G, so a group never straddles two warps. Each group names only
+// its own lanes in the shuffles' masks: groups of one warp may leave their
+// loops at different times.
+
+// The mask of the G-lane group that holds this thread.
+__device__ __forceinline__ unsigned group_mask(int G) {
+  if (G >= 32) return 0xffffffffu;
+  const int first = (threadIdx.x & 31) & ~(G - 1);
+  return ((1u << G) - 1u) << first;
+}
+
+// Inclusive prefix sum over the group's lanes (lane = index inside the
+// group): lane i gets x_0 + ... + x_i, summed as a tree, log2(G) shuffles.
+__device__ __forceinline__ float group_inclusive_sum(float x, unsigned mask, int lane, int G) {
+  for (int d = 1; d < G; d <<= 1) {
+    const float y = __shfl_up_sync(mask, x, d, G);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
 
 __global__ void composite_forward_kernel(
     const float* __restrict__ sigmas,  // [n, T]
@@ -98,7 +135,7 @@ __global__ void composite_forward_kernel(
   depth[ray] = d;
 }
 
-__global__ void composite_backward_kernel(
+__global__ void __launch_bounds__(256) composite_backward_kernel(
     const float* __restrict__ sigmas,  // [n, T]
     const float* __restrict__ rgbs,    // [n, T, 3]
     const float* __restrict__ deltas,  // [n, T]
@@ -113,9 +150,11 @@ __global__ void composite_backward_kernel(
     const float* __restrict__ g_depth,        // [n]
     float* __restrict__ d_sigmas,  // [n, T]
     float* __restrict__ d_rgbs,    // [n, T, 3]
-    int n, int T, float density_scale, float T_thresh) {
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n) return;
+    int n, int T, int G, float density_scale, float T_thresh) {
+  const int ray = static_cast<int>((static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / G);
+  if (ray >= n) return;  // a whole group leaves together
+  const int lane = threadIdx.x & (G - 1);
+  const unsigned mask = group_mask(G);
   const size_t base = static_cast<size_t>(ray) * T;
   const float* sig = sigmas + base;
   const float* dt = deltas + base;
@@ -139,30 +178,48 @@ __global__ void composite_backward_kernel(
   const float total = gr * (image[3 * ray] - rest * br) + gg * (image[3 * ray + 1] - rest * bgg) +
                       gb * (image[3 * ray + 2] - rest * bb) + gD * depth[ray] + gW * W - g_bg * W;
 
-  float acc = 0.f;     // sum_{j<i} s_j, as in the forward
-  float prefix = 0.f;  // sum_{j<=i} w_j * gw_j
-  int i = 0;
-  for (; i < T; ++i) {
-    const float trans = expf(-acc);
-    if (trans < T_thresh) break;
-    const float s = dt[i] * density_scale * sig[i];
+  float carry_s = 0.f;  // the forward's running sum of s, up to this chunk
+  float carry_p = 0.f;  // sum of w * gw over the chunks before this one
+  int c0 = 0;
+  for (; c0 < T; c0 += G) {
+    if (expf(-carry_s) < T_thresh) break;  // the same carry in every lane of the group
+    const int i = c0 + lane;
+    const bool in = i < T;
+    float s = 0.f, d = 0.f, t = 0.f, r = 0.f, g = 0.f, b = 0.f;
+    if (in) {
+      d = dt[i];
+      s = d * density_scale * sig[i];
+      t = tt[i];
+      r = rgb[3 * i];
+      g = rgb[3 * i + 1];
+      b = rgb[3 * i + 2];
+    }
+    // the forward's acc: s added one sample after another (a lane past T
+    // adds 0, which changes nothing)
+    float acc = carry_s, acc_in = 0.f;
+    for (int k = 0; k < G; ++k) {
+      const float sk = __shfl_sync(mask, s, k, G);
+      if (k == lane) acc_in = acc;
+      acc += sk;
+    }
+    const float trans = expf(-acc_in);
+    const bool live = in && !(trans < T_thresh);
     const float e = expf(-s);
-    const float w = (1.f - e) * trans;
-    const float gw = gr * rgb[3 * i] + gg * rgb[3 * i + 1] + gb * rgb[3 * i + 2] + gD * tt[i] + gW - g_bg;
-    prefix += w * gw;
-    const float d_s = trans * e * gw - (total - prefix);
-    dsig[i] = d_s * (dt[i] * density_scale);
-    drgb[3 * i] = w * gr;
-    drgb[3 * i + 1] = w * gg;
-    drgb[3 * i + 2] = w * gb;
-    acc += s;
+    const float w = live ? (1.f - e) * trans : 0.f;
+    const float gw = gr * r + gg * g + gb * b + gD * t + gW - g_bg;
+    const float incl_p = group_inclusive_sum(w * gw, mask, lane, G);
+    if (in) {
+      const float d_s = live ? trans * e * gw - (total - (carry_p + incl_p)) : 0.f;
+      dsig[i] = d_s * (d * density_scale);
+      drgb[3 * i] = w * gr;
+      drgb[3 * i + 1] = w * gg;
+      drgb[3 * i + 2] = w * gb;
+    }
+    carry_s = acc;
+    carry_p += __shfl_sync(mask, incl_p, G - 1, G);
   }
-  for (; i < T; ++i) {
-    dsig[i] = 0.f;
-    drgb[3 * i] = 0.f;
-    drgb[3 * i + 1] = 0.f;
-    drgb[3 * i + 2] = 0.f;
-  }
+  for (int i = c0 + lane; i < T; i += G) dsig[i] = 0.f;
+  for (int k = 3 * c0 + lane; k < 3 * T; k += G) drgb[k] = 0.f;
 }
 
 }  // namespace
@@ -185,14 +242,16 @@ extern "C" int focnerf_composite_backward(
     const float* sigmas, const float* rgbs, const float* deltas, const float* ts,
     const float* bg, int bg_stride, const float* image, const float* weights_sum,
     const float* depth, const float* g_image, const float* g_weights_sum, const float* g_depth,
-    float* d_sigmas, float* d_rgbs, int n, int T, float density_scale, float T_thresh,
+    float* d_sigmas, float* d_rgbs, int n, int T, int G, float density_scale, float T_thresh,
     void* stream) {
-  constexpr int kThreads = 32;
-  if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    composite_backward_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  constexpr int kThreads = 256;  // 256 / G rays per block
+  if (G < 1 || G > 32 || (G & (G - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0 && T > 0) {
+    const long long blocks = (static_cast<long long>(n) * G + kThreads - 1) / kThreads;
+    composite_backward_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
         sigmas, rgbs, deltas, ts, bg, bg_stride, image, weights_sum, depth, g_image,
-        g_weights_sum, g_depth, d_sigmas, d_rgbs, n, T, density_scale, T_thresh);
+        g_weights_sum, g_depth, d_sigmas, d_rgbs, n, T, G, density_scale, T_thresh);
   }
   return static_cast<int>(cudaGetLastError());
 }

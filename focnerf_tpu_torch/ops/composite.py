@@ -91,19 +91,28 @@ def _check(named, n: int, T: int, device):
             raise ValueError(f"{name}: need a contiguous {shape}, got {tuple(t.shape)}")
 
 
-def _function(name: str, n_ptrs: int):
+def _function(name: str, n_ptrs: int, n_ints: int):
     """The kernel library's C function ``name`` with its argtypes set: five
     input pointers, the background's row stride, ``n_ptrs`` more pointers,
-    then n, T, density_scale, T_thresh and the stream."""
+    ``n_ints`` ints (n, T and, for the backward, the group width), then
+    density_scale, T_thresh and the stream."""
     from focnerf_tpu_torch.ops._build import load_library
 
     fn = getattr(load_library("composite"), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
+            ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     return fn
+
+
+def group_width(T: int) -> int:
+    """Lanes per ray of the backward kernel: the power of two >= T, at most
+    a warp (32). A group reads a chunk of that many samples at once."""
+    G = 1
+    while G < min(T, 32):
+        G *= 2
+    return G
 
 
 def _launch(sigmas, rgbs, deltas, ts, bg, bg_stride, density_scale, T_thresh):
@@ -112,7 +121,7 @@ def _launch(sigmas, rgbs, deltas, ts, bg, bg_stride, density_scale, T_thresh):
     image = torch.empty((n, 3), dtype=torch.float32, device=sigmas.device)
     weights_sum = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
     depth = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
-    err = _function("focnerf_composite_forward", 3)(
+    err = _function("focnerf_composite_forward", 3, 2)(
         sigmas.data_ptr(), rgbs.data_ptr(), deltas.data_ptr(), ts.data_ptr(),
         bg.data_ptr() if bg is not None else None, bg_stride,
         image.data_ptr(), weights_sum.data_ptr(), depth.data_ptr(),
@@ -137,7 +146,6 @@ def composite_rays_fused_backward(
     backward kernel, which counts one launch in
     ``composite_rays_fused_backward.launches``.
     """
-    n, T = sigmas.shape
     grads = [torch.zeros_like(o) if g is None else g.float().contiguous()
              for o, g in zip(outputs, grads)]
     if not sigmas.is_cuda:
@@ -149,6 +157,15 @@ def composite_rays_fused_backward(
             return torch.autograd.grad(
                 (out["image"], out["weights_sum"], out["depth"]), (s, c), grads
             )
+    return _backward_launch(sigmas, rgbs, deltas, ts, bg_color, outputs, grads, density_scale,
+                            T_thresh)
+
+
+def _backward_launch(sigmas, rgbs, deltas, ts, bg_color, outputs, grads, density_scale,
+                     T_thresh):
+    """Checks the operands, then launches the backward kernel with
+    ``group_width(T)`` lanes per ray."""
+    n, T = sigmas.shape
     bg, bg_stride = _bg_operand(bg_color, n, sigmas.device)
     image, weights_sum, depth = outputs
     g_image, g_weights_sum, g_depth = grads
@@ -157,13 +174,13 @@ def composite_rays_fused_backward(
                 g_weights_sum=g_weights_sum, g_depth=g_depth), n, T, sigmas.device)
     d_sigmas = torch.empty((n, T), dtype=torch.float32, device=sigmas.device)
     d_rgbs = torch.empty((n, T, 3), dtype=torch.float32, device=sigmas.device)
-    err = _function("focnerf_composite_backward", 8)(
+    err = _function("focnerf_composite_backward", 8, 3)(
         sigmas.data_ptr(), rgbs.data_ptr(), deltas.data_ptr(), ts.data_ptr(),
         bg.data_ptr() if bg is not None else None, bg_stride,
         image.data_ptr(), weights_sum.data_ptr(), depth.data_ptr(),
         g_image.data_ptr(), g_weights_sum.data_ptr(), g_depth.data_ptr(),
         d_sigmas.data_ptr(), d_rgbs.data_ptr(),
-        n, T, float(density_scale), float(T_thresh),
+        n, T, group_width(T), float(density_scale), float(T_thresh),
         torch.cuda.current_stream(sigmas.device).cuda_stream,
     )
     if err != 0:

@@ -24,7 +24,8 @@ The table gradient is ``HashGridEncode``'s backward, as the JAX custom VJP's
 ``weights * g`` into the table rows the forward read. On CPU tensors that is
 ``index_add_``; on CUDA tensors it launches ``csrc/hashgrid_bwd.cu`` (the
 port of ``hashgrid_pallas.py::hashgrid_bwd_level``, all levels in one
-launch) or raises. Coarse-to-fine, ``grad_levels`` and the TV loss wait.
+launch, a warp's duplicate rows summed before its atomics) or raises.
+Coarse-to-fine, ``grad_levels`` and the TV loss wait.
 """
 
 from __future__ import annotations
@@ -305,13 +306,14 @@ def table_grad_plain(rows, weights, g, col_level, n_rows: int, C: int) -> torch.
 
 
 def _table_grad_launch(rows, weights, g, col_level, n_rows: int, C: int):
+    """Checks the operands, then launches the kernel."""
     from focnerf_tpu_torch.ops._build import load_library
 
     n, J = rows.shape
     for name, t, dtype, shape in (
         ("rows", rows, torch.int32, (n, J)),
         ("weights", weights, torch.float32, (n, J)),
-        ("g", g, torch.float32, tuple(g.shape)),
+        ("g", g, torch.float32, (n, g.shape[-1])),
         ("col_level", col_level, torch.int32, (J,)),
     ):
         if t.device != rows.device or t.dtype != dtype:
@@ -320,16 +322,16 @@ def _table_grad_launch(rows, weights, g, col_level, n_rows: int, C: int):
             raise ValueError(f"{name}: need a contiguous {shape}, got {tuple(t.shape)}")
     if n_rows >= 2**31:
         raise ValueError(f"table of {n_rows} rows: int32 rows need fewer than 2^31")
+    if C < 1 or g.shape[-1] % C:
+        raise ValueError(f"g: {g.shape[-1]} columns are not whole levels of {C} channels")
     d_table = torch.zeros((n_rows, C), dtype=torch.float32, device=rows.device)
     fn = load_library("hashgrid_bwd").focnerf_hashgrid_table_grad
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p
-        ]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     err = fn(
         rows.data_ptr(), weights.data_ptr(), g.data_ptr(), col_level.data_ptr(),
-        d_table.data_ptr(), n * J, J, C, g.shape[1],
+        d_table.data_ptr(), n, J, C, g.shape[1],
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
     if err != 0:

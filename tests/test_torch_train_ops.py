@@ -289,3 +289,88 @@ def test_mark_untrained_grid_matches_jax():
     # frustum comparisons of the same fp32 products: a cell exactly on a
     # frustum plane may flip; none does on these poses
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------- (e) the kernel wrappers' host side
+@pytest.mark.parametrize("T,G", [(1, 1), (16, 16), (17, 32), (128, 32), (200, 32)])
+def test_composite_backward_group_width(T, G):
+    """Lanes per ray of the backward kernel: the power of two >= T, at most 32."""
+    assert tcomp.group_width(T) == G
+
+
+def _table_grad_operands(n=64, J=16, C=2):
+    return dict(rows=torch.zeros((n, J), dtype=torch.int32), weights=torch.ones((n, J)),
+                g=torch.zeros((n, J * C)), col_level=torch.arange(J, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bad", ["rows dtype", "weights dtype", "weights device", "g shape",
+                                 "g strided", "col_level shape", "col_level dtype", "channels"])
+def test_table_grad_launch_rejects_bad_operands(bad):
+    """The kernel's wrapper raises on what the kernel does not take, before it
+    builds or launches anything."""
+    ops = _table_grad_operands()
+    C = 2
+    if bad == "rows dtype":
+        ops["rows"] = ops["rows"].long()
+    elif bad == "weights dtype":
+        ops["weights"] = ops["weights"].double()
+    elif bad == "weights device":
+        ops["weights"] = ops["weights"].to("meta")
+    elif bad == "g shape":
+        ops["g"] = ops["g"][:-1]
+    elif bad == "g strided":
+        ops["g"] = torch.zeros((64, 64))[:, ::2]
+    elif bad == "col_level shape":
+        ops["col_level"] = ops["col_level"][:-1]
+    elif bad == "col_level dtype":
+        ops["col_level"] = ops["col_level"].long()
+    else:
+        C = 3  # 32 cotangent columns are not whole levels of 3 channels
+    with pytest.raises(ValueError):
+        thg._table_grad_launch(**ops, n_rows=100, C=C)
+
+
+def test_table_grad_rejects_other_devices():
+    ops = _table_grad_operands()
+    meta = {k: v.to("meta") for k, v in ops.items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        thg.hashgrid_table_grad(meta["rows"], meta["weights"], meta["g"], tuple(range(16)), 100)
+
+
+def _composite_operands(n=8, T=16):
+    sig, rgb, dts, ts = (_t(a) for a in _comp_data(n=n, t=T, spike=False))
+    outs = (torch.zeros(n, 3), torch.zeros(n), torch.zeros(n))
+    return dict(sigmas=sig, rgbs=rgb, deltas=dts, ts=ts, bg_color=1.0, outputs=outs,
+                grads=tuple(torch.ones_like(o) for o in outs))
+
+
+@pytest.mark.parametrize("bad", ["sigmas dtype", "rgbs shape", "ts device", "deltas strided",
+                                 "g_image shape", "weights_sum dtype", "bg shape"])
+def test_composite_backward_launch_rejects_bad_operands(bad):
+    """The backward kernel's wrapper raises on what the kernel does not take,
+    before it builds or launches anything."""
+    ops = _composite_operands()
+    if bad == "sigmas dtype":
+        ops["sigmas"] = ops["sigmas"].double()
+    elif bad == "rgbs shape":
+        ops["rgbs"] = ops["rgbs"][:, :-1]
+    elif bad == "ts device":
+        ops["ts"] = ops["ts"].to("meta")
+    elif bad == "deltas strided":
+        ops["deltas"] = torch.zeros(8, 32)[:, ::2]
+    elif bad == "g_image shape":
+        ops["grads"] = (torch.ones(8, 4),) + ops["grads"][1:]
+    elif bad == "weights_sum dtype":
+        ops["outputs"] = (ops["outputs"][0], ops["outputs"][1].half(), ops["outputs"][2])
+    else:
+        ops["bg_color"] = torch.ones(7, 3)
+    with pytest.raises(ValueError):
+        tcomp._backward_launch(**ops, density_scale=1.0, T_thresh=1e-4)
+
+
+def test_composite_backward_rejects_other_devices():
+    ops = {k: v.to("meta") if torch.is_tensor(v) else v for k, v in _composite_operands().items()}
+    ops["outputs"] = tuple(o.to("meta") for o in ops["outputs"])
+    ops["grads"] = tuple(o.to("meta") for o in ops["grads"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tcomp.composite_rays_fused_backward(**ops)
