@@ -12,10 +12,14 @@ non-zero exit code and no result line:
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the path that runs it, with its time, the plain version's
      time, the library call's time where one PyTorch call computes the same
-     function, and the least time the card could take (its bound):
-     the composite forward at [4096, 128]; the composite backward on the
-     inputs its lane groups make risky (T 16, 32, 100, 128; inf spikes at
-     chunk starts), timed at [4096, 128] and [4096, 16]; the hash-table
+     function, and the least time the card could take (its bound): the
+     composite forward and backward on the inputs their lane groups make
+     risky (T 16, 32, 100, 128; inf spikes at chunk starts), the forward
+     with no, a scalar and a per-ray background, with a carried optical
+     depth (``composite_rays_resume``) and on the two-segment identity,
+     timed at [4096, 128] (T_thresh 1e-4 and 0), [4096, 16] and, with a
+     carried optical depth, at the iterative round's [65536, 16]; the
+     backward timed at [4096, 128] and [4096, 16]; the hash-table
      gradient scatter on the -O encode of 4096 x 128 and 4096 x 16 points,
      on one level-0 cell, on the exact 8-corner layout and at one and four
      channels, timed at the two -O shapes;
@@ -26,11 +30,16 @@ non-zero exit code and no result line:
      composite kernel must have run once per 4096-ray chunk of every view;
   5. training: an analytic RGBA sphere scene at 800x800 with train, val and
      test splits and its object-mask sidecar (the sphere's alpha),
-     ``main_nerf <scene> -O --iters 500`` at full width; each
-     backward kernel must run once per step and the composite forward at
-     least once per step, the loss must fall by half, the val PSNR must
-     reach 20 dB and a checkpoint must exist; then ``--test -O`` serves
-     from the trained checkpoint (a trained, sparse grid), and 5 more steps
+     ``main_nerf <scene> -O --iters 500`` at full width with its default
+     eval renderer (``iter``); each backward kernel must run once per step,
+     the composite forward at least once per step and
+     ``composite_rays_resume`` once per round of the eval, the loss must
+     fall by half, the val PSNR must reach 20 dB and a checkpoint must
+     exist; then ``--test -O`` serves from the trained checkpoint (a
+     trained, sparse grid); the val views are evaluated with ``iter``,
+     ``iter_dev`` and ``oneshot`` (s/view, rounds, launches, PSNR: the two
+     iterative renders must agree within 1e-4 mean per view and neither
+     may fall 0.5 dB below ``oneshot``); 5 more steps
      are profiled: stage times, the device's busy share and top kernels;
      nvidia-smi samples the SM clock beside each timed training window and
      the table-gradient timing; on one train step at each of the slabs 128,
@@ -38,8 +47,10 @@ non-zero exit code and no result line:
      the samples the forward's loop masks;
   6. reference: one small view rendered on the card (kernel) and on the CPU
      (plain versions) must agree, through the occupancy path and through the
-     uniform path of ``main_nerf --test`` without ``-O``; and one train
-     step's loss and gradients on the card must agree with the CPU's.
+     uniform path of ``main_nerf --test`` without ``-O`` (the serving
+     model), and through the iterative renderer (the trained model); and
+     one train step's loss and gradients on the card must agree with the
+     CPU's.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the training path.
@@ -66,11 +77,15 @@ FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
 def counters():
     """Every kernel wrapper, by the name the kernels line uses."""
-    from focnerf_tpu_torch.ops.composite import composite_rays_fused, composite_rays_fused_backward
+    from focnerf_tpu_torch.ops.composite import (
+        composite_rays_fused,
+        composite_rays_fused_backward,
+        composite_rays_resume,
+    )
     from focnerf_tpu_torch.ops.hashgrid import hashgrid_table_grad
 
-    return {f.__name__: f for f in (composite_rays_fused, composite_rays_fused_backward,
-                                    hashgrid_table_grad)}
+    return {f.__name__: f for f in (composite_rays_fused, composite_rays_resume,
+                                    composite_rays_fused_backward, hashgrid_table_grad)}
 
 
 def reset_counts():
@@ -130,17 +145,16 @@ def phase_build():
           f"({', '.join(_build.KERNEL_SOURCES)}, one nvcc each, in parallel)")
 
 
-def composite_inputs(t: int = 128, thin: bool = False):
-    """A [4096, t] chunk on the card: sigma U[0, 50] with inf spikes
+def composite_inputs(t: int = 128, thin: bool = False, n: int = CHUNK):
+    """An [n, t] chunk on the card: sigma U[0, 50] with inf spikes
     (trunc_exp's fp32 overflow), rgb, dt, t and a per-ray background.
     ``thin``: every fourth ray's sigma is scaled by 1e-3, so those rays keep
     their transmittance to the end of the row, and more inf spikes sit on
-    such rays at samples 16, 32 and 64 (where the backward kernel's lane
-    groups start a chunk)."""
+    such rays at samples 16, 32 and 64 (where the kernels' lane groups start
+    a chunk)."""
     import torch
 
     g = torch.Generator().manual_seed(0)
-    n = CHUNK
     sig = torch.rand(n, t, generator=g) * 50.0
     if thin:
         sig[::4] *= 1e-3
@@ -156,71 +170,154 @@ def composite_inputs(t: int = 128, thin: bool = False):
     return tuple(x.cuda() for x in (sig, rgb, dts, ts, bg_rays))
 
 
-def samples_read(sig, dts, thresh: float) -> int:
-    """Samples whose entering transmittance is >= thresh: what the kernels read."""
+def samples_read(sig, dts, thresh: float, od0=None) -> int:
+    """Samples whose entering transmittance is >= thresh: what the kernels
+    need to read (``od0``: the optical depth each ray carries in)."""
     import torch
 
     s = dts * sig
     acc = torch.cat([torch.zeros_like(s[:, :1]), torch.cumsum(s[:, :-1], -1)], -1)
+    if od0 is not None:
+        acc = acc + od0[:, None]
     return int((torch.exp(-acc) >= thresh).sum())
 
 
-def phase_composite_kernel() -> dict:
-    """composite_rays_fused vs composite_rays at the serving chunk [4096, 128]."""
+def od_error(got, want, thresh: float) -> float:
+    """How far the kernel's outgoing optical depth is from the plain
+    version's, relative to it: a ray must leave the worklist (exp(-od) <
+    thresh) in both or in neither, and where it stays the two must agree.
+    Where the kernel stopped early its od is the carry at the stop, below
+    the row's sum, so only the decision is compared there."""
     import torch
 
-    from focnerf_tpu_torch.ops.composite import composite_rays, composite_rays_fused
+    stays = torch.exp(-want) >= thresh
+    if not torch.equal(stays, torch.exp(-got) >= thresh):
+        return math.inf
+    both = stays & torch.isfinite(want)
+    if not torch.equal(torch.isinf(got[stays]), torch.isinf(want[stays])):
+        return math.inf
+    return float(((got - want).abs() / want.abs().clamp(min=1.0))[both].max())
+
+
+def phase_composite_kernel() -> list:
+    """The forward kernel vs its plain versions: composite_rays_fused vs
+    composite_rays at T 16, 32, 100 (a ragged last chunk) and 128, thin
+    rays and inf spikes at chunk starts, T_thresh 0 and 1e-4, no, a scalar
+    and a per-ray background; composite_rays_resume vs
+    composite_resume_plain with a nonzero carried optical depth; the
+    two-segment identity (compositing [a|b] at once equals a, then b at the
+    optical depth a left with). Then timed: composite_rays_fused at the
+    serving chunk [4096, 128] with T_thresh 1e-4 and 0 and at [4096, 16]
+    (the -O slab's small end), composite_rays_resume at the iterative
+    round's [65536, 16] with a carried optical depth."""
+    import torch
+
+    from focnerf_tpu_torch.ops.composite import (
+        composite_rays,
+        composite_rays_fused,
+        composite_rays_resume,
+        composite_resume_plain,
+        group_width,
+    )
     from focnerf_tpu_torch.utils.measure import device_ms
 
-    sig, rgb, dts, ts, bg_rays = composite_inputs()
-    n, t = sig.shape
+    def finite(outs, what):
+        if not all(torch.isfinite(a).all() for a in outs):
+            raise AssertionError(f"composite forward kernel: non-finite output ({what})")
 
-    err = 0.0
-    for thresh in (0.0, 1e-4):
-        for bg in (1.0, bg_rays):
-            got = composite_rays_fused(sig, rgb, dts, ts, bg_color=bg, T_thresh=thresh)
+    errs, od_errs = {}, {}
+    for t in (16, 32, 100, 128):
+        sig, rgb, dts, ts, bg_rays = composite_inputs(t, thin=True)
+        od0 = torch.rand(sig.shape[0], generator=torch.Generator(device="cuda").manual_seed(t),
+                         device="cuda") * 8.0
+        for thresh in (0.0, 1e-4):
+            for bg_name, bg in (("none", None), ("scalar", 1.0), ("per-ray", bg_rays)):
+                got = composite_rays_fused(sig, rgb, dts, ts, bg_color=bg, T_thresh=thresh)
+                ref = composite_rays(sig, rgb, dts, ts, bg_color=bg, T_thresh=thresh)
+                torch.cuda.synchronize()
+                finite(got, f"T={t}, T_thresh={thresh}, bg {bg_name}")
+                errs[("fused", t, thresh, bg_name)] = max(
+                    float((a - b).abs().max()) for a, b in zip(got, (ref["image"], ref["weights_sum"], ref["depth"])))
+            got = composite_rays_resume(sig, rgb, dts, ts, od0, T_thresh=thresh)
+            ref = composite_resume_plain(sig, rgb, dts, ts, od0, T_thresh=thresh)
             torch.cuda.synchronize()
-            ref = composite_rays(sig, rgb, dts, ts, bg_color=bg, T_thresh=thresh)
-            for a, b in zip(got, (ref["image"], ref["weights_sum"], ref["depth"])):
-                if not torch.isfinite(a).all():
-                    raise AssertionError(f"composite kernel: non-finite output (T_thresh={thresh})")
-                err = max(err, float((a - b).abs().max()))
-    # limit 1e-5: the kernel sums each ray's fp32 terms in sample order, the
-    # plain version through cumsum/sum reductions in another order
-    print(f"[kernel] composite_rays_fused max_abs_err {err:.3g} vs plain (limit 1e-5)")
-    if not err <= 1e-5:
-        raise AssertionError(f"composite kernel disagrees with its plain version: {err}")
+            finite(got[:3], f"resume T={t}, T_thresh={thresh}")
+            errs[("resume", t, thresh)] = max(float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3]))
+            od_errs[("resume", t, thresh)] = od_error(got[3], ref[3], thresh)
+            # two segments: [a|b] at once equals a, then b at a's outgoing od
+            k = (3 * t) // 8 + 1  # not on a chunk boundary
+            zero = torch.zeros_like(od0)
+            whole = composite_rays_resume(sig, rgb, dts, ts, zero, T_thresh=thresh)
+            a = composite_rays_resume(sig[:, :k].contiguous(), rgb[:, :k].contiguous(), dts[:, :k].contiguous(),
+                                      ts[:, :k].contiguous(), zero, T_thresh=thresh)
+            b = composite_rays_resume(sig[:, k:].contiguous(), rgb[:, k:].contiguous(), dts[:, k:].contiguous(),
+                                      ts[:, k:].contiguous(), a[3], T_thresh=thresh)
+            torch.cuda.synchronize()
+            errs[("two segments", t, thresh)] = max(
+                float((x + y - w).abs().max()) for w, x, y in zip(whole[:3], a[:3], b[:3]))
+            od_errs[("two segments", t, thresh)] = od_error(b[3], whole[3], thresh)
+    err, od_err = max(errs.values()), max(od_errs.values())
+    # limit 1e-5: the kernel sums each ray's fp32 terms per lane and then as
+    # a tree, the plain version through cumsum/sum reductions in another
+    # order; od (a sum of up to 128 optical depths) relative 1e-5
+    print(f"[kernel] composite forward max_abs_err {err:.3g} (limit 1e-5) over {len(errs)} cases: "
+          f"composite_rays_fused T 16/32/100/128 x T_thresh 0/1e-4 x no/scalar/per-ray bg, "
+          f"composite_rays_resume with od0 U[0, 8] and the two-segment identity at each T and T_thresh; "
+          f"a quarter of the rays thin, inf spikes at samples 0, 5, 16, 32, 64; worst {max(errs, key=errs.get)}; "
+          f"outgoing od relative error {od_err:.3g} (limit 1e-5, the leave/stay decision identical)")
+    if not (err <= 1e-5 and od_err <= 1e-5):
+        raise AssertionError(f"composite forward kernel disagrees with its plain version: {errs} {od_errs}")
 
-    thresh = 1e-4  # the serving path's setting, with a scalar background
-    ms, span = device_ms(lambda: composite_rays_fused(sig, rgb, dts, ts, bg_color=1.0, T_thresh=thresh))
-    plain_ms, plain_span = device_ms(lambda: composite_rays(sig, rgb, dts, ts, bg_color=1.0, T_thresh=thresh))
-    ms0, _ = device_ms(lambda: composite_rays_fused(sig, rgb, dts, ts, bg_color=1.0, T_thresh=0.0))
-    # bound: the kernel must read (sigma, dt, ts, rgb) = 24 B of every sample
-    # whose entering transmittance is >= T_thresh (the rest it never reads),
-    # the 12 B background once, and write 20 B per ray; ~17 fp32 operations
-    # (two of them exp) per sample read
-    read = samples_read(sig, dts, thresh)
-    nbytes = read * 24 + 12 + n * 20
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = read * 17 / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[kernel] composite_rays_fused [{n},{t}] T_thresh=1e-4: device {ms:.5f} ms "
-          f"(call span {span:.4f} ms), plain device {plain_ms:.5f} ms (span {plain_span:.4f} ms), "
-          f"bound {bound_ms:.5f} ms ({read} of {n * t} samples read, {nbytes} B)")
-    print(f"[kernel] composite_rays_fused [{n},{t}] T_thresh=0 (every sample read): device {ms0:.5f} ms, "
-          f"bound {(n * t * 24 + n * 20 + 12) / HBM_BYTES_PER_S * 1e3:.5f} ms")
-    return {
-        "name": "composite_rays_fused",
-        "route": "cuda",
-        "source": "focnerf_tpu_torch/csrc/composite.cu",
-        "replaces": "focnerf_tpu/ops/composite_pallas.py:95",
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,  # no single PyTorch call computes this function
-    }
+    def bound(n, read, with_od):
+        # bytes: (sigma, dt, ts, rgb) = 24 B of every sample whose entering
+        # transmittance is >= T_thresh (the rest need not be read), the 12 B
+        # background once, 20 B written per ray (resume: od0 read and od
+        # written, no background: 28 B); ~17 fp32 operations (two exp) per
+        # sample read
+        nbytes = read * 24 + (n * 28 if with_od else 12 + n * 20)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, read * 17 / FP32_OPS_PER_S * 1e3
+        return max(bytes_ms, ops_ms), bytes_ms >= ops_ms, nbytes
+
+    rows = {}
+    for label, t, n, thresh in (("[4096,128] T_thresh=1e-4", 128, CHUNK, 1e-4),
+                                ("[4096,128] T_thresh=0", 128, CHUNK, 0.0),
+                                ("[4096,16] T_thresh=1e-4", 16, CHUNK, 1e-4)):
+        sig, rgb, dts, ts, _ = composite_inputs(t, n=n)
+        ms, span = device_ms(lambda: composite_rays_fused(sig, rgb, dts, ts, bg_color=1.0, T_thresh=thresh))
+        plain_ms, plain_span = device_ms(lambda: composite_rays(sig, rgb, dts, ts, bg_color=1.0, T_thresh=thresh))
+        read = samples_read(sig, dts, thresh)
+        rows[label] = (ms, plain_ms, *bound(n, read, False))
+        print(f"[kernel] composite_rays_fused {label}, {group_width(t)} lanes per ray: device {ms:.5f} ms "
+              f"(call span {span:.4f} ms), plain device {plain_ms:.5f} ms (span {plain_span:.4f} ms), bound "
+              f"{rows[label][2]:.5f} ms ({read} of {n * t} samples read, {rows[label][4]} B)")
+    n, t, thresh = 65536, 16, 1e-4
+    sig, rgb, dts, ts, _ = composite_inputs(t, n=n)
+    od0 = torch.rand(n, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda") * 8.0
+    ms, span = device_ms(lambda: composite_rays_resume(sig, rgb, dts, ts, od0, T_thresh=thresh))
+    plain_ms, plain_span = device_ms(lambda: composite_resume_plain(sig, rgb, dts, ts, od0, T_thresh=thresh))
+    read = samples_read(sig, dts, thresh, od0)
+    resume = (ms, plain_ms, *bound(n, read, True))
+    print(f"[kernel] composite_rays_resume [{n},{t}] od0 U[0, 8], T_thresh=1e-4, {group_width(t)} lanes per ray: "
+          f"device {ms:.5f} ms (call span {span:.4f} ms), plain device {plain_ms:.5f} ms (span "
+          f"{plain_span:.4f} ms), bound {resume[2]:.5f} ms ({read} of {n * t} samples read, {resume[4]} B)")
+
+    def entry(name, row):
+        ms, plain_ms, bound_ms, by_bytes, _ = row
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "focnerf_tpu_torch/csrc/composite.cu",
+            "replaces": "focnerf_tpu/ops/composite_pallas.py:95",
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if by_bytes else "operations",
+            "library_ms": None,  # no single PyTorch call computes this function
+        }
+
+    return [entry("composite_rays_fused", rows["[4096,128] T_thresh=1e-4"]),
+            entry("composite_rays_resume", resume)]
 
 
 def phase_composite_backward_kernel() -> dict:
@@ -536,7 +633,7 @@ def phase_serving(work: str, dev):
     launches = read_counts()
 
     check_renders(os.path.join(f"{ws}_background", "results"), VIEWS)
-    want = dict(composite_rays_fused=VIEWS * math.ceil(RES * RES / CHUNK),
+    want = dict(composite_rays_fused=VIEWS * math.ceil(RES * RES / CHUNK), composite_rays_resume=0,
                 composite_rays_fused_backward=0, hashgrid_table_grad=0)
     if launches != want:
         raise AssertionError(f"serving launches {launches}, want {want}")
@@ -602,17 +699,19 @@ def write_training_scene(root: str, scale: float):
 
 
 def phase_train(work: str, dev):
-    """main_nerf -O training at full width, then --test -O from its checkpoint."""
+    """main_nerf -O training at full width with its default eval renderer
+    (iter), then --test -O from its checkpoint."""
     import numpy as np
     import torch
 
     from focnerf_tpu_torch.apps import main_nerf
     from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.render.iterative import render_rays_iterative
     from focnerf_tpu_torch.train.checkpoints import CheckpointManager
 
     scene, ws = os.path.join(work, "train_scene"), os.path.join(work, "train_ws")
     argv = [scene, "-O", "--workspace", ws, "--disable_yolo", "--iters", str(TRAIN_ITERS),
-            "--eval_renderer", "oneshot", "--mesh_res", "0", "--ckpt_interval", "10"]
+            "--mesh_res", "0", "--ckpt_interval", "10"]
     opt = parse_options(argv)
     t0 = time.time()
     write_training_scene(scene, opt.scale)
@@ -622,12 +721,14 @@ def phase_train(work: str, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    render_rays_iterative.rounds = 0
     t0 = time.time()
     with SMClocks() as clocks:
         (trainer,) = main_nerf.main(argv, device=dev)
         torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counts()
+    rounds = render_rays_iterative.rounds
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     steps = len(trainer.step_losses)
@@ -641,7 +742,8 @@ def phase_train(work: str, dev):
           f"{train_s:.2f} s of training ({wall:.2f} s with loading and the final eval): "
           f"{train_s / steps * 1e3:.2f} ms/step, {opt.num_rays * steps / train_s:.0f} rays/s, "
           f"peak memory {peak:.3f} GiB; {clocks.summary()}")
-    print(f"[train] loss first 50 steps {first:.5f}, last 50 {last:.5f}; val PSNR {psnr:.3f} dB, "
+    print(f"[train] loss first 50 steps {first:.5f}, last 50 {last:.5f}; val PSNR {psnr:.3f} dB "
+          f"({trainer.eval_renderer} eval, {rounds} rounds over {VAL_VIEWS} views), "
           f"SSIM {trainer.last_eval_results['SSIM']:.4f}; slab {trainer.active_slab}; skip-walk "
           f"iterations per step mean {np.mean(trainer.march_iters):.1f} "
           f"(max {max(trainer.march_iters)}); launches {launches}; checkpoint step {ckpt}")
@@ -649,6 +751,9 @@ def phase_train(work: str, dev):
         raise AssertionError(f"backward kernels launched {launches}, want once per step ({steps})")
     if launches["composite_rays_fused"] < steps:
         raise AssertionError(f"composite forward launched {launches} times in {steps} steps")
+    if trainer.eval_renderer != "iter" or not launches["composite_rays_resume"] == rounds > 0:
+        raise AssertionError(f"the {trainer.eval_renderer} eval ran {rounds} rounds, launches {launches}; "
+                             "want the iterative renderer, one composite_rays_resume launch a round")
     if steps != TRAIN_ITERS or not np.isfinite(losses).all() or not last < 0.5 * first:
         raise AssertionError(f"training did not learn: {steps} steps, loss {first} -> {last}")
     if not psnr >= 20.0:
@@ -716,16 +821,16 @@ def phase_reference(params, cfg, bits):
             raise AssertionError(f"reference {path}: card and CPU renders disagree")
 
 
-def train_dataset(scene: str, dev):
-    """The training scene's train split, loaded as ``main_nerf -O`` loads it."""
+def train_dataset(scene: str, dev, split: str = "train"):
+    """A split of the training scene, loaded as ``main_nerf -O`` loads it."""
     from focnerf_tpu_torch.apps.main_nerf import mask_details_for
     from focnerf_tpu_torch.config import parse_options
     from focnerf_tpu_torch.data.provider import NeRFDataset
     from focnerf_tpu_torch.data.yolo_sidecar import load_sidecar
 
     opt = parse_options([scene, "-O"])
-    return NeRFDataset(opt.dataset_options(), split="train", device=dev,
-                       mask_details=mask_details_for(load_sidecar(scene, "train"), OBJECT))
+    return NeRFDataset(opt.dataset_options(), split=split, device=dev,
+                       mask_details=mask_details_for(load_sidecar(scene, split), OBJECT))
 
 
 def phase_train_profile(trainer, ds, dev, steps: int = 5):
@@ -884,6 +989,102 @@ def phase_backward_mask(trainer, ds, dev):
         raise AssertionError(f"composite backward mask: {len(chunks)} chunks, mismatches {bad}")
 
 
+def phase_eval_renderers(trainer, ds):
+    """The trained model's val views through each eval renderer (the EMA
+    params, as ``evaluate``): s/view, rounds per view, composite_rays_resume
+    launches and val PSNR of each. ``iter`` and ``iter_dev`` run the same
+    per-ray rounds (only the batch shapes of the bf16 MLP products differ):
+    they must agree within 1e-4 mean absolute per view, and neither may fall
+    more than 0.5 dB below ``oneshot``."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.render.iterative import render_rays_iterative
+    from focnerf_tpu_torch.train.meters import psnr
+
+    params, kept = trainer.state.ema_params, trainer.eval_renderer
+    images, rows = {}, {}
+    for renderer in ("iter", "iter_dev", "oneshot"):
+        trainer.eval_renderer = renderer
+        kw = trainer._render_kwargs()
+        reset_counts()
+        render_rays_iterative.rounds = 0
+        images[renderer], seconds, psnrs = [], [], []
+        for v in range(ds.n_views):
+            view = ds.eval_view(v)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, _ = trainer._render_view(params, view, ds, kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            gt = view["pixels"].reshape(ds.H, ds.W, -1)
+            if gt.shape[-1] == 4:  # as evaluate: RGBA on white
+                gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+            psnrs.append(float(psnr(torch.clamp(img, 0.0, 1.0), gt)))
+            images[renderer].append(img)
+        launches, rounds = read_counts(), render_rays_iterative.rounds
+        rows[renderer] = (float(np.mean(psnrs)), launches["composite_rays_resume"])
+        print(f"[eval] {renderer}: {ds.n_views} val views of {ds.W}x{ds.H}, s/view {np.mean(seconds):.3f} "
+              f"(views {', '.join(f'{x:.3f}' for x in seconds)}), rounds/view {rounds / ds.n_views:.1f}, "
+              f"composite_rays_resume launches {launches['composite_rays_resume']}, val PSNR "
+              f"{rows[renderer][0]:.3f} dB (views {', '.join(f'{x:.3f}' for x in psnrs)})")
+        if renderer != "oneshot" and launches["composite_rays_resume"] != rounds:
+            raise AssertionError(f"{renderer}: {rounds} rounds, launches {launches}")
+    trainer.eval_renderer = kept
+    diffs = [float((a - b).abs().mean()) for a, b in zip(images["iter"], images["iter_dev"])]
+    print(f"[eval] iter vs iter_dev mean absolute difference per view: "
+          f"{', '.join(f'{x:.3g}' for x in diffs)} (limit 1e-4)")
+    if not max(diffs) <= 1e-4:
+        raise AssertionError(f"iter and iter_dev renders differ: {diffs}")
+    for renderer in ("iter", "iter_dev"):
+        if not rows[renderer][0] >= rows["oneshot"][0] - 0.5:
+            raise AssertionError(f"{renderer} val PSNR {rows[renderer][0]} more than 0.5 dB below "
+                                 f"oneshot's {rows['oneshot'][0]}")
+
+
+def phase_iterative_reference(trainer):
+    """One 96x96 view of the trained model through render_image_iterative
+    on the card (kernel) and on the CPU (plain versions), with the same
+    skip field, in fp32; on the card composite_rays_resume must run once a
+    round."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.core.camera import rand_poses
+    from focnerf_tpu_torch.ops.composite import composite_rays_resume
+    from focnerf_tpu_torch.ops.occupancy import occupancy_bitfield, occupancy_skip_field
+    from focnerf_tpu_torch.render.iterative import render_image_iterative, render_rays_iterative
+
+    cfg32 = dataclasses.replace(trainer.cfg, compute_dtype=torch.float32)  # no bf16 flips
+    pose = rand_poses(np.random.default_rng(3), 1, radius=CAMERA_RADIUS)[0]
+    intr = np.array([115.2, 115.2, 48, 48], np.float32)
+    skip = occupancy_skip_field(occupancy_bitfield(trainer.occupancy, trainer.density_thresh))
+    params = trainer.state.ema_params
+    cpu_params = {k: (v.cpu() if torch.is_tensor(v) else [w.cpu() for w in v]) for k, v in params.items()}
+    kw = dict(dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps, min_near=trainer.min_near, bg_color=1.0,
+              obj_feat=np.zeros(144, np.float32))  # the training scene's object feature
+    composite_rays_resume.launches = render_rays_iterative.rounds = 0
+    gpu, _ = render_image_iterative(params, cfg32, pose, intr, 96, 96, occ_skip=skip, **kw)
+    rounds = render_rays_iterative.rounds
+    if not composite_rays_resume.launches == rounds > 0:
+        raise AssertionError(f"iterative reference: {composite_rays_resume.launches} launches in {rounds} rounds")
+    cpu, _ = render_image_iterative(cpu_params, cfg32, pose, intr, 96, 96, occ_skip=skip.cpu(), **kw)
+    if not torch.isfinite(gpu).all():
+        raise AssertionError("iterative reference: non-finite render on the card")
+    diff = (gpu.cpu() - cpu).abs()
+    far = float((diff > 1e-3).float().mean())
+    print(f"[reference] iterative renderer, 96x96 fp32 view of the trained model, {rounds} rounds, card vs CPU: "
+          f"max_abs_err {float(diff.max()):.3g}, mean {float(diff.mean()):.3g}, share > 1e-3: {far:.4f} "
+          f"(limits, as the occupancy path's: mean 1e-4, share 0.01); object share "
+          f"{float((cpu < 0.99).any(-1).float().mean()):.3f}")
+    # as the occupancy path: sums in other orders and libm vs CUDA exp/pow;
+    # a walk landing on a cell boundary may flip cells and move a ray's samples
+    if not (float(diff.mean()) <= 1e-4 and far <= 0.01):
+        raise AssertionError("iterative reference: card and CPU renders disagree")
+
+
 def phase_train_reference(trainer):
     """One train step's loss and gradients on the card (kernels) and on the
     CPU (plain versions), from the trained params and skip field, the same
@@ -923,8 +1124,8 @@ def phase_train_reference(trainer):
         loss, aux = occupancy_loss(params, cfg32, {k: to(v) for k, v in batch.items()}, to(skip),
                                    {k: to(v) for k, v in draws.items()}, **kw)
         loss.backward()
-        if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_fused_backward=1,
-                                                     hashgrid_table_grad=1):
+        if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
+                                                     composite_rays_fused_backward=1, hashgrid_table_grad=1):
             raise AssertionError(f"reference train step on the card launched {read_counts()}")
         out[where] = (float(loss.detach()), [p.grad.cpu() for p in param_leaves(params)],
                       float(aux["n_samples"].float().mean()))
@@ -955,16 +1156,18 @@ def main() -> int:
     from focnerf_tpu_torch.config import parse_options
 
     cfg = parse_options(["scene", "-O"]).nerf_config()  # the training path's model
-    kernels = [phase_composite_kernel(), phase_composite_backward_kernel(), phase_table_grad_kernel(cfg)]
+    kernels = [*phase_composite_kernel(), phase_composite_backward_kernel(), phase_table_grad_kernel(cfg)]
     work = os.path.join(HERE, "workspace_chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     dev = torch.device("cuda")
     params, cfg, bits = phase_serving(work, dev)
     launches, trainer = phase_train(work, dev)
+    phase_eval_renderers(trainer, train_dataset(os.path.join(work, "train_scene"), dev, "val"))
     ds = train_dataset(os.path.join(work, "train_scene"), dev)
     phase_train_profile(trainer, ds, dev)
     phase_backward_mask(trainer, ds, dev)
     phase_reference(params, cfg, bits)
+    phase_iterative_reference(trainer)
     phase_train_reference(trainer)
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 

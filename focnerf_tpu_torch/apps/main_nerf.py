@@ -12,12 +12,13 @@ Twin of focnerf_tpu/apps/main_nerf.py:
     rendered to ``<workspace>_<obj>/results``.
 
 Usage:
-  python -m focnerf_tpu_torch.apps.main_nerf <scene> -O --workspace ws --iters 30000 \
-      --eval_renderer oneshot
+  python -m focnerf_tpu_torch.apps.main_nerf <scene> -O --workspace ws --iters 30000
   python -m focnerf_tpu_torch.apps.main_nerf <scene> --test -O --workspace ws
 
-The default ``--eval_renderer iter`` needs render/iterative.py, which is not
-ported: training refuses it before its first step when a val split exists.
+Training evaluates the val split with ``--eval_renderer`` (default ``iter``,
+the iterative worklist renderer; ``iter_dev`` its drain; ``oneshot`` the
+chunked slab renderer). ``--test`` renders through the oneshot renderer
+with the ladder marcher whatever the flags say, as the JAX test mode does.
 """
 
 from __future__ import annotations
@@ -86,8 +87,7 @@ def train_one_object(opt: Options, obj: str, sidecar_train, sidecar_val, device)
         ckpt_interval=opt.ckpt_interval, eval_save_images=opt.eval_save_images,
         eval_renderer=opt.eval_renderer, device=device,
     )
-    if val_ds is not None:
-        trainer.check_eval_renderer()  # refuse before training, not after it
+    trainer.check_eval_renderer()  # refuse before training, not after it
     steps_per_epoch = max(train_ds.n_views, 1)
     # train the REMAINING iters: a --ckpt latest resume starts at its step
     remaining = max(0, opt.iters - trainer.global_step)

@@ -17,6 +17,11 @@ which autograd differentiates. On CUDA tensors it is a
 ``focnerf_composite_forward`` and whose backward launches
 ``focnerf_composite_backward`` (``csrc/composite.cu``), or raises. ``ts``
 and ``deltas`` get no gradient: the marcher made them.
+
+``composite_rays_resume`` is the iterative eval renderer's per-round
+compositor (forward only): the row enters at the optical depth the ray
+carries from its earlier rounds, and the depth it leaves with is returned
+for the next round. On CUDA tensors it launches the same forward kernel.
 """
 
 from __future__ import annotations
@@ -26,13 +31,19 @@ import ctypes
 import torch
 
 
-def composite_weights(sigmas, deltas, density_scale: float = 1.0, T_thresh: float = 0.0):
-    """Per-sample weights [..., T] (alpha_i * T_i, zeroed after early exit)."""
+def composite_weights(sigmas, deltas, density_scale: float = 1.0, T_thresh: float = 0.0,
+                      od0=None):
+    """Per-sample weights [..., T] (alpha_i * T_i, zeroed after early exit).
+
+    ``od0`` [...]: the optical depth carried in, added to every sample's
+    exclusive prefix (focnerf_tpu/render/iterative.py's round math)."""
     s = deltas.float() * density_scale * sigmas.float()
     alphas = 1.0 - torch.exp(-s)
     acc_excl = torch.cat(
         [torch.zeros_like(s[..., :1]), torch.cumsum(s[..., :-1], dim=-1)], dim=-1
     )
+    if od0 is not None:
+        acc_excl = od0.float()[..., None] + acc_excl
     trans_in = torch.exp(-acc_excl)
     weights = alphas * trans_in
     if T_thresh > 0.0:
@@ -91,47 +102,53 @@ def _check(named, n: int, T: int, device):
             raise ValueError(f"{name}: need a contiguous {shape}, got {tuple(t.shape)}")
 
 
-def _function(name: str, n_ptrs: int, n_ints: int):
+def _function(name: str, n_ptrs: int):
     """The kernel library's C function ``name`` with its argtypes set: five
     input pointers, the background's row stride, ``n_ptrs`` more pointers,
-    ``n_ints`` ints (n, T and, for the backward, the group width), then
-    density_scale, T_thresh and the stream."""
+    n, T and the group width, then density_scale, T_thresh and the stream."""
     from focnerf_tpu_torch.ops._build import load_library
 
     fn = getattr(load_library("composite"), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [
-            ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     return fn
 
 
 def group_width(T: int) -> int:
-    """Lanes per ray of the backward kernel: the power of two >= T, at most
-    a warp (32). A group reads a chunk of that many samples at once."""
+    """Lanes per ray of both kernels: the power of two >= T, at most a warp
+    (32). A group reads a chunk of that many samples at once."""
     G = 1
     while G < min(T, 32):
         G *= 2
     return G
 
 
-def _launch(sigmas, rgbs, deltas, ts, bg, bg_stride, density_scale, T_thresh):
+def _launch(sigmas, rgbs, deltas, ts, bg, bg_stride, density_scale, T_thresh, od0=None):
+    """Checks the operands, then launches the forward kernel with
+    ``group_width(T)`` lanes per ray -> (image, weights_sum, depth, od): with
+    ``od0`` (the optical depth carried in) ``od`` is the carry at which each
+    ray stopped, else None."""
     n, T = sigmas.shape
-    _check(dict(sigmas=sigmas, rgbs=rgbs, deltas=deltas, ts=ts), n, T, sigmas.device)
+    named = dict(sigmas=sigmas, rgbs=rgbs, deltas=deltas, ts=ts)
+    if od0 is not None:
+        named["od0"] = od0
+    _check(named, n, T, sigmas.device)
     image = torch.empty((n, 3), dtype=torch.float32, device=sigmas.device)
     weights_sum = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
     depth = torch.empty((n,), dtype=torch.float32, device=sigmas.device)
-    err = _function("focnerf_composite_forward", 3, 2)(
-        sigmas.data_ptr(), rgbs.data_ptr(), deltas.data_ptr(), ts.data_ptr(),
-        bg.data_ptr() if bg is not None else None, bg_stride,
-        image.data_ptr(), weights_sum.data_ptr(), depth.data_ptr(),
-        n, T, float(density_scale), float(T_thresh),
+    od = torch.empty((n,), dtype=torch.float32, device=sigmas.device) if od0 is not None else None
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    err = _function("focnerf_composite_forward", 5)(
+        sigmas.data_ptr(), rgbs.data_ptr(), deltas.data_ptr(), ts.data_ptr(), ptr(bg), bg_stride,
+        ptr(od0), image.data_ptr(), weights_sum.data_ptr(), depth.data_ptr(), ptr(od),
+        n, T, group_width(T), float(density_scale), float(T_thresh),
         torch.cuda.current_stream(sigmas.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"composite forward kernel launch failed: cudaError {err}")
-    composite_rays_fused.launches += 1
-    return image, weights_sum, depth
+    return image, weights_sum, depth, od
 
 
 def composite_rays_fused_backward(
@@ -174,7 +191,7 @@ def _backward_launch(sigmas, rgbs, deltas, ts, bg_color, outputs, grads, density
                 g_weights_sum=g_weights_sum, g_depth=g_depth), n, T, sigmas.device)
     d_sigmas = torch.empty((n, T), dtype=torch.float32, device=sigmas.device)
     d_rgbs = torch.empty((n, T, 3), dtype=torch.float32, device=sigmas.device)
-    err = _function("focnerf_composite_backward", 8, 3)(
+    err = _function("focnerf_composite_backward", 8)(
         sigmas.data_ptr(), rgbs.data_ptr(), deltas.data_ptr(), ts.data_ptr(),
         bg.data_ptr() if bg is not None else None, bg_stride,
         image.data_ptr(), weights_sum.data_ptr(), depth.data_ptr(),
@@ -193,7 +210,8 @@ class _CompositeFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sigmas, rgbs, deltas, ts, bg_color, density_scale, T_thresh):
         bg, bg_stride = _bg_operand(bg_color, sigmas.shape[0], sigmas.device)
-        outputs = _launch(sigmas, rgbs, deltas, ts, bg, bg_stride, density_scale, T_thresh)
+        outputs = _launch(sigmas, rgbs, deltas, ts, bg, bg_stride, density_scale, T_thresh)[:3]
+        composite_rays_fused.launches += 1
         ctx.save_for_backward(sigmas, rgbs, deltas, ts, *outputs)
         ctx.bg_color = bg_color
         ctx.bg_grad = torch.is_tensor(bg_color) and bg_color.requires_grad
@@ -235,5 +253,40 @@ def composite_rays_fused(
     return out["image"], out["weights_sum"], out["depth"]
 
 
+def composite_resume_plain(sigmas, rgbs, deltas, ts, od0, density_scale: float = 1.0,
+                           T_thresh: float = 0.0):
+    """The plain version of ``composite_rays_resume``: the round's
+    compositing of focnerf_tpu/render/iterative.py:91-106, with ``od`` =
+    od0 plus the sum of s over the row."""
+    w = composite_weights(sigmas, deltas, density_scale, T_thresh, od0=od0)
+    s = deltas.float() * density_scale * sigmas.float()
+    return ((w[..., None] * rgbs.float()).sum(-2), w.sum(-1), (w * ts.float()).sum(-1),
+            od0.float() + s.sum(-1))
+
+
+def composite_rays_resume(sigmas, rgbs, deltas, ts, od0, density_scale: float = 1.0,
+                          T_thresh: float = 0.0):
+    """One round of a ray's compositing, entering at its carried optical
+    depth ``od0`` [N] -> (rgb [N, 3] without background, weights_sum [N],
+    depth [N] from the raw ``ts``, od [N]), fp32, without gradients.
+
+    ``od`` is the optical depth the ray leaves with. The plain version
+    returns od0 plus the sum of s over the row. The kernel stops a ray at
+    the first chunk it enters with T_in < T_thresh and returns the carry
+    there: below the row's sum, but already past T_thresh, so the ray
+    leaves the worklist either way. CPU tensors take the plain version;
+    CUDA tensors the forward kernel, one launch counted in
+    ``composite_rays_resume.launches``.
+    """
+    if sigmas.is_cuda:
+        out = _launch(sigmas, rgbs, deltas, ts, None, 0, density_scale, T_thresh, od0=od0)
+        composite_rays_resume.launches += 1
+        return out
+    if sigmas.device.type != "cpu":
+        raise ValueError(f"composite_rays_resume: unsupported device {sigmas.device}")
+    return composite_resume_plain(sigmas, rgbs, deltas, ts, od0, density_scale, T_thresh)
+
+
 composite_rays_fused.launches = 0
 composite_rays_fused_backward.launches = 0
+composite_rays_resume.launches = 0

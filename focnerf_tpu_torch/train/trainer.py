@@ -4,13 +4,15 @@ Twin of focnerf_tpu/train/trainer.py for the ``main_nerf -O`` path: the
 constructor's checkpoint modes (:237-280), ``train`` with the occupancy
 cadence (update every ``update_extra_interval`` steps, :432-452), the
 bitfield / skip-field cache (:537-547) and the slab buckets (:454-475),
-``evaluate`` through the oneshot ``render_image`` with PSNR/SSIM and the
-best checkpoint (:791-842), and ``test`` (:844-880).
+``evaluate`` with PSNR/SSIM and the best checkpoint (:791-842), and
+``test`` (:844-880). A view renders as ``_render_view`` (:378-418) has it:
+with the occupancy grid, the ``iter``/``iter_dev`` eval renderers go
+through render/iterative.py, everything else through the oneshot
+``render_image``.
 
 Every draw comes from one ``torch.Generator`` on the training device,
 seeded by ``seed``. Not ported (refused when asked for): training without
-the occupancy grid, the ``iter``/``iter_dev`` eval renderers
-(render/iterative.py), coarse-to-fine, gradient-level phases, the TV term,
+the occupancy grid, coarse-to-fine, gradient-level phases, the TV term,
 the CLIP rand-pose branch and mesh export. ``steps_per_dispatch`` > 1 runs
 one step per dispatch (its fused form gives the same steps).
 """
@@ -34,16 +36,14 @@ from focnerf_tpu_torch.ops.occupancy import (
     occupancy_skip_field,
     update_occupancy,
 )
+from focnerf_tpu_torch.render.iterative import render_image_iterative
 from focnerf_tpu_torch.render.renderer import render_image
 from focnerf_tpu_torch.train.checkpoints import BestCheckpoint, CheckpointManager, save_model_config
 from focnerf_tpu_torch.train.meters import PSNRMeter, SSIMMeter
 from focnerf_tpu_torch.train.state import TrainState
 from focnerf_tpu_torch.train.steps import step_draws, train_step_occupancy
 
-_ITER_RENDERER = (
-    "eval_renderer {!r} (render/iterative.py) is not ported yet; "
-    "pass --eval_renderer oneshot"
-)
+EVAL_RENDERERS = ("oneshot", "iter", "iter_dev")
 
 
 class Trainer:
@@ -284,9 +284,10 @@ class Trainer:
 
     # ------------------------------------------------------------------ eval
     def check_eval_renderer(self):
-        """Raise when an evaluation would need the unported iterative renderer."""
-        if self.eval_renderer in ("iter", "iter_dev") and self.occupancy is not None:
-            raise NotImplementedError(_ITER_RENDERER.format(self.eval_renderer))
+        """Raise on an eval renderer that does not exist."""
+        if self.eval_renderer not in EVAL_RENDERERS:
+            raise ValueError(f"eval_renderer {self.eval_renderer!r}: expected one of "
+                             f"{', '.join(EVAL_RENDERERS)}")
 
     def _render_kwargs(self) -> dict:
         """render_image kwargs; the occupancy path whenever the model has a grid."""
@@ -307,6 +308,18 @@ class Trainer:
     def _render_view(self, params, view, dataset, render_kwargs):
         """Render one eval/test view -> (img [H, W, 3], depth [H, W])."""
         self.check_eval_renderer()
+        if self.eval_renderer in ("iter", "iter_dev") and self.occupancy is not None:
+            kw = render_kwargs
+            occ_skip = kw.get("occ_skip")
+            if occ_skip is None:
+                occ_skip = occupancy_skip_field(kw["occ_bits"])
+            return render_image_iterative(
+                params, self.cfg, view["pose"], dataset.intrinsics, dataset.H, dataset.W,
+                occ_skip=occ_skip, dt_gamma=kw.get("dt_gamma", 0.0),
+                max_steps=kw.get("max_steps", 1024), min_near=kw.get("min_near", 0.2),
+                obj_feat=view.get("obj_feat"), bg_color=1.0,
+                device_loop=self.eval_renderer == "iter_dev",
+            )
         return render_image(
             params, self.cfg, view["pose"], dataset.intrinsics, dataset.H, dataset.W,
             obj_feat=view.get("obj_feat"), bg_color=1.0, **render_kwargs,

@@ -40,6 +40,7 @@ def test_kernel_module_imports_without_nvcc(monkeypatch):
 
     assert composite.composite_rays_fused.launches >= 0
     assert composite.composite_rays_fused_backward.launches >= 0
+    assert composite.composite_rays_resume.launches >= 0
     assert hashgrid.hashgrid_table_grad.launches >= 0
     assert _build.KERNEL_SOURCES == ("composite", "hashgrid_bwd")
     for name in _build.KERNEL_SOURCES:
@@ -85,6 +86,40 @@ def test_kernel_matches_plain_on_card():
             want = (ref["image"], ref["weights_sum"], ref["depth"])
             for a, b in zip(got, want):  # fp32 sums in another order
                 torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_resume_kernel_matches_plain_on_card():
+    """The forward kernel with a carried optical depth (the iterative
+    renderer's rounds) against its plain version, at a ragged T."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from focnerf_tpu_torch.ops.composite import composite_rays_resume, composite_resume_plain
+
+    g = torch.Generator().manual_seed(0)
+    n, t = 1000, 20
+    sig = torch.rand(n, t, generator=g) * 50
+    sig[::3] *= 1e-3
+    sig[7, 16] = float("inf")
+    rgb = torch.rand(n, t, 3, generator=g)
+    dts = torch.rand(n, t, generator=g) * 0.02 + 0.003
+    ts = torch.cumsum(dts, -1)
+    od0 = torch.rand(n, generator=g) * 8
+    dev = [x.cuda() for x in (sig, rgb, dts, ts, od0)]
+    for thresh in (0.0, 1e-4):
+        before = composite_rays_resume.launches
+        got = composite_rays_resume(*dev, T_thresh=thresh)
+        torch.cuda.synchronize()
+        assert composite_rays_resume.launches == before + 1
+        want = composite_resume_plain(*dev, T_thresh=thresh)
+        for a, b in zip(got[:3], want[:3]):  # fp32 sums in another order
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+        # a ray leaves the worklist in both or in neither; where it stays,
+        # the outgoing optical depth agrees (the kernel stops a saturated
+        # ray early, and its od is then the carry at the stop)
+        stays = torch.exp(-want[3]) >= thresh
+        assert torch.equal(stays, torch.exp(-got[3]) >= thresh)
+        torch.testing.assert_close(got[3][stays], want[3][stays], rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda

@@ -182,14 +182,18 @@ def test_main_test_mode_matches_jax(scene, tmp_path):
 
 def test_main_needs_cuda_or_an_explicit_cpu(scene, tmp_path):
     from focnerf_tpu_torch.apps import main_nerf as tmain
+    from focnerf_tpu_torch.render.iterative import render_rays_iterative
 
     argv = [scene, "--workspace", str(tmp_path / "ws"), "--disable_yolo"]
-    # training with a val split and the default eval_renderer "iter" is
-    # refused before its first step: the iterative renderer is not ported
-    with pytest.raises(NotImplementedError, match="eval_renderer 'iter'"):
-        tmain.main(argv + ["-O"], device="cpu")
-    assert not os.path.exists(os.path.join(str(tmp_path / "ws") + "_background", "checkpoints",
-                                           "ckpt_00000001.pt"))
+    # -O training with a val split and the default eval_renderer ("iter")
+    # runs on an explicit CPU and evaluates through the iterative renderer
+    render_rays_iterative.rounds = 0
+    (tr,) = tmain.main(argv + ["-O", "--scale", "1.0", "--bound", "1.0", "--grid_levels", "4",
+                               "--num_rays", "256", "--iters", "3"], device="cpu")
+    assert tr.eval_renderer == "iter" and tr.global_step == 3 and tr.last_eval_step == 3
+    assert render_rays_iterative.rounds > 0 and np.isfinite(tr.last_eval_results["PSNR"])
+    assert os.path.exists(os.path.join(str(tmp_path / "ws") + "_background", "checkpoints",
+                                       "ckpt_00000003.pt"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmain.main(argv + ["--test"])

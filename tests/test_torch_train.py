@@ -193,21 +193,28 @@ def test_meters_match_jax():
 
 
 # ---------------------------------------------------- (d) main_nerf end to end
-def test_main_nerf_trains_resumes_and_serves(tmp_path):
+@pytest.mark.parametrize("eval_renderer", ["oneshot", "iter"])
+def test_main_nerf_trains_resumes_and_serves(tmp_path, eval_renderer):
+    """``iter`` is the CLI's default: it is not passed."""
     from focnerf_tpu_torch.apps import main_nerf
     from focnerf_tpu_torch.data.png import read_image
-    from focnerf_tpu_torch.ops.composite import composite_rays_fused
+    from focnerf_tpu_torch.ops.composite import composite_rays_fused, composite_rays_resume
     from focnerf_tpu_torch.ops.hashgrid import hashgrid_table_grad
+    from focnerf_tpu_torch.render.iterative import render_rays_iterative
     from focnerf_tpu_torch.train.checkpoints import CheckpointManager
     from focnerf_tpu_torch.train.trainer import Trainer
 
     scene = make_synthetic_scene(str(tmp_path / "scene"), n_train=4, n_val=1)
     ws = str(tmp_path / "ws")
     common = [scene, "-O", "--workspace", ws, "--disable_yolo", "--scale", "1.0", "--bound", "1.0",
-              "--grid_levels", "4", "--num_rays", "256", "--max_ray_batch", "1024",
-              "--eval_renderer", "oneshot"]
+              "--grid_levels", "4", "--num_rays", "256", "--max_ray_batch", "1024"]
+    if eval_renderer != "iter":
+        common += ["--eval_renderer", eval_renderer]
+    render_rays_iterative.rounds = 0
     (tr,) = main_nerf.main(common + ["--iters", "32"], device="cpu")
     assert composite_rays_fused.launches == 0 and hashgrid_table_grad.launches == 0  # CPU
+    assert composite_rays_resume.launches == 0
+    assert (render_rays_iterative.rounds > 0) == (eval_renderer == "iter")  # the eval's renderer
     losses = tr.step_losses
     assert len(losses) == 32 and np.isfinite(losses).all()
     assert np.mean(losses[-8:]) < 0.6 * np.mean(losses[:8])  # it learns
