@@ -19,6 +19,8 @@ non-zero exit code and no result line:
      depth (``composite_rays_resume``) and on the two-segment identity,
      timed at [4096, 128] (T_thresh 1e-4 and 0), [4096, 16] and, with a
      carried optical depth, at the iterative round's [65536, 16]; the
+     forward at the uniform composition row [4096, 512], T_thresh 0 (16
+     chunks a ray, thin rays carried through all of them), held and timed; the
      backward timed at [4096, 128] and [4096, 16]; the hash-table
      gradient scatter on the -O encode of 4096 x 128 and 4096 x 16 points,
      on one level-0 cell, on the exact 8-corner layout and at one and four
@@ -50,10 +52,27 @@ non-zero exit code and no result line:
      uniform path of ``main_nerf --test`` without ``-O`` (the serving
      model), and through the iterative renderer (the trained model); and
      one train step's loss and gradients on the card must agree with the
-     CPU's.
+     CPU's;
+  7. composition: a second object (BALL, a smaller sphere of other colours
+     beside the first, constant non-zero object features) is trained with
+     ``main_nerf -O`` on a scene with the same cameras; both objects are laid
+     out as ``<root>/ws_<obj>/checkpoints`` with ``<root>/obj_feats/``, and
+     ``combined`` composes the val views of both spheres together (occupancy
+     path, K=2 resident): s/view, peak memory, PSNR_w >= 20 dB, the forward
+     kernel launched once per 4096-ray chunk of every view and the plain
+     compositor given no CUDA tensor; then ``editable --edit_object ball
+     --offset_x 0.3`` the same way, with its video (or PNG frames);
+  8. composition reference: a 96x96 view composed on the card and on the
+     CPU from the same checkpoints (plain, translated edit, rotate_z 90 on
+     the uniform path at 512 steps) must agree as the render checks do;
+     composing [A, A] must equal [A] bit for bit, and [A] composed must
+     equal ``render_image`` of A within 1e-5; then one composed 800x800
+     view is profiled by stage and under torch.profiler.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-every kernel with its launches on the training path.
+every kernel with its launches on the training path (``launches``), in the
+``combined`` run (``launches_compose``) and in the ``editable`` run
+(``launches_edit``).
 """
 
 from __future__ import annotations
@@ -71,6 +90,10 @@ VIEWS, RES, CHUNK = 4, 800, 4096
 TRAIN_ITERS, TRAIN_VIEWS, VAL_VIEWS = 500, 50, 4
 CAMERA_RADIUS, SPHERE_RADIUS = 3.0, 0.8  # ngp units; the bound box is [-2, 2]^3
 OBJECT = "sphere"  # the training scene's one object
+# (centre, radius, colour where y < 0, colour where y >= 0) in ngp units
+SPHERE = ((0.0, 0.0, 0.0), SPHERE_RADIUS, (0.9, 0.2, 0.1), (0.1, 0.3, 0.9))
+BALL = ((0.0, 0.0, 1.35), 0.45, (0.95, 0.8, 0.1), (0.2, 0.8, 0.2))  # the composition's second object
+SECOND, SECOND_ITERS = "ball", 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
@@ -290,6 +313,34 @@ def phase_composite_kernel() -> list:
         print(f"[kernel] composite_rays_fused {label}, {group_width(t)} lanes per ray: device {ms:.5f} ms "
               f"(call span {span:.4f} ms), plain device {plain_ms:.5f} ms (span {plain_span:.4f} ms), bound "
               f"{rows[label][2]:.5f} ms ({read} of {n * t} samples read, {rows[label][4]} B)")
+    # the uniform composition row (compose_rays, rotation edits): [4096, 512]
+    # at T_thresh 0, depth over the normalized t in [0, 1], 16 chunks of 32
+    # samples a ray; a quarter of the rays thin, so their prefix is carried
+    # through every chunk
+    sig, rgb, dts, ts, bg_rays = composite_inputs(512, thin=True)
+    ts = ts / ts[:, -1:]
+    uni_errs = {}
+    for bg_name, bg in (("none", None), ("scalar 0", 0.0), ("per-ray", bg_rays)):
+        got = composite_rays_fused(sig, rgb, dts, ts, bg_color=bg, T_thresh=0.0)
+        ref = composite_rays(sig, rgb, dts, ts, bg_color=bg, T_thresh=0.0)
+        torch.cuda.synchronize()
+        finite(got, f"T=512, bg {bg_name}")
+        uni_errs[bg_name] = max(float((a - b).abs().max()) for a, b in zip(got, (ref["image"], ref["weights_sum"], ref["depth"])))
+    uni_err = max(uni_errs.values())
+    ms, span = device_ms(lambda: composite_rays_fused(sig, rgb, dts, ts, bg_color=0.0, T_thresh=0.0))
+    plain_ms, plain_span = device_ms(lambda: composite_rays(sig, rgb, dts, ts, bg_color=0.0, T_thresh=0.0))
+    read = samples_read(sig, dts, 0.0)
+    rows["[4096,512] T_thresh=0"] = (ms, plain_ms, *bound(CHUNK, read, False))
+    print(f"[kernel] composite_rays_fused [4096,512] T_thresh=0 (the uniform composition row), "
+          f"{group_width(512)} lanes per ray, {512 // group_width(512)} chunks a ray: max_abs_err {uni_err:.3g} "
+          f"(limit 1e-5) over no/scalar/per-ray bg, a quarter of the rays thin (their median T_out "
+          f"{float(torch.exp(-(sig[::4] * dts[::4]).sum(-1)).median()):.3f}); device {ms:.5f} ms (call span "
+          f"{span:.4f} ms), plain device {plain_ms:.5f} ms (span {plain_span:.4f} ms), bound "
+          f"{rows['[4096,512] T_thresh=0'][2]:.5f} ms ({read} of {CHUNK * 512} samples read, "
+          f"{rows['[4096,512] T_thresh=0'][4]} B)")
+    if not uni_err <= 1e-5:
+        raise AssertionError(f"composite forward kernel disagrees with its plain version at T=512: {uni_errs}")
+
     n, t, thresh = 65536, 16, 1e-4
     sig, rgb, dts, ts, _ = composite_inputs(t, n=n)
     od0 = torch.rand(n, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda") * 8.0
@@ -308,7 +359,7 @@ def phase_composite_kernel() -> list:
             "route": "cuda",
             "source": "focnerf_tpu_torch/csrc/composite.cu",
             "replaces": "focnerf_tpu/ops/composite_pallas.py:95",
-            "max_abs_err": err,
+            "max_abs_err": max(err, uni_err),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -643,35 +694,42 @@ def phase_serving(work: str, dev):
     return params, cfg, occupancy_bitfield(occ, opt.density_thresh)
 
 
-def sphere_view(pose, fl: float):
-    """RGBA render [RES, RES, 4] uint8 of the analytic sphere (radius
-    SPHERE_RADIUS at the origin, one colour above y = 0 and another below)
-    for an ngp pose; transparent around it, as a Blender object render is."""
+def sphere_view(pose, fl: float, spheres=(SPHERE,)):
+    """RGBA render [RES, RES, 4] uint8 of analytic spheres (``(centre,
+    radius, colour below, colour above)``: one colour where y < 0, another
+    above) for an ngp pose, the nearest hit in front; transparent around
+    them, as a Blender object render is."""
     import numpy as np
 
     yy, xx = np.mgrid[0:RES, 0:RES].astype(np.float32)
     dirs = np.stack([(xx + 0.5 - RES / 2) / fl, (yy + 0.5 - RES / 2) / fl, np.ones_like(xx)], -1)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     d = dirs.reshape(-1, 3) @ pose[:3, :3].T
-    o = pose[:3, 3]
-    b = d @ o
-    disc = b * b - (o @ o - SPHERE_RADIUS**2)
-    t = -b - np.sqrt(np.maximum(disc, 0))
-    hit = (disc > 0) & (t > 0)
-    y = o[1] + t * d[:, 1]
-    rgb = np.where((y < 0)[:, None], [[0.9, 0.2, 0.1]], [[0.1, 0.3, 0.9]])
-    rgba = np.concatenate([np.where(hit[:, None], rgb, 1.0), hit[:, None]], -1)
+    t_near = np.full(d.shape[0], np.inf)
+    rgb = np.ones_like(d)
+    for centre, radius, below, above in spheres:
+        o = pose[:3, 3] - np.asarray(centre, np.float32)
+        b = d @ o
+        disc = b * b - (o @ o - radius**2)
+        t = -b - np.sqrt(np.maximum(disc, 0))
+        hit = (disc > 0) & (t > 0) & (t < t_near)
+        y = o[1] + t * d[:, 1]
+        rgb = np.where(hit[:, None], np.where((y < 0)[:, None], [below], [above]), rgb)
+        t_near = np.where(hit, t, t_near)
+    rgba = np.concatenate([rgb, np.isfinite(t_near)[:, None]], -1)
     return (rgba.reshape(RES, RES, 4) * 255 + 0.5).astype(np.uint8)
 
 
-def write_training_scene(root: str, scale: float):
-    """Blender-layout train/val/test splits of the analytic sphere at RES^2
-    (focal 1.2 * width), cameras on a sphere of CAMERA_RADIUS (ngp units)
-    looking at the origin, and the object-mask sidecar that YOLO
-    preprocessing would write (``yolo/<split>.npz``: one object, OBJECT,
-    masked by the sphere's alpha, zero features). FOC-NeRF takes an
+def write_training_scene(root: str, scale: float, obj: str = OBJECT, spheres=(SPHERE,), feat: float = 0.0,
+                         splits=("train", "val", "test")):
+    """Blender-layout ``splits`` of analytic spheres at RES^2 (focal 1.2 *
+    width), cameras on a sphere of CAMERA_RADIUS (ngp units) looking at the
+    origin, and the object-mask sidecar that YOLO preprocessing would write
+    (``yolo/<split>.npz``: one object, ``obj``, masked by the spheres' alpha,
+    the feature ``feat`` in all 144 entries of every view). FOC-NeRF takes an
     object's alpha from its mask, so the mask is what makes the pixels
-    around the sphere transparent in training."""
+    around the object transparent in training. Every scene draws the same
+    cameras (train, then val, then test), whichever splits it writes."""
     import numpy as np
 
     from focnerf_tpu_torch.core.camera import rand_poses
@@ -680,10 +738,13 @@ def write_training_scene(root: str, scale: float):
     rng = np.random.default_rng(7)
     os.makedirs(os.path.join(root, "yolo"), exist_ok=True)
     for split, n in (("train", TRAIN_VIEWS), ("val", VAL_VIEWS), ("test", VIEWS)):
+        poses = rand_poses(rng, n, radius=CAMERA_RADIUS)
+        if split not in splits:
+            continue
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames, paths, masks = [], [], []
-        for i, pose in enumerate(rand_poses(rng, n, radius=CAMERA_RADIUS)):
-            rgba = sphere_view(pose, 1.2 * RES)
+        for i, pose in enumerate(poses):
+            rgba = sphere_view(pose, 1.2 * RES, spheres)
             paths.append(f"{split}/r_{i}.png")
             write_image(os.path.join(root, paths[-1]), rgba)
             masks.append(rgba[..., 3] > 127)
@@ -692,9 +753,9 @@ def write_training_scene(root: str, scale: float):
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": 2 * math.atan(1 / 2.4), "frames": frames}, f)
         np.savez_compressed(
-            os.path.join(root, "yolo", f"{split}.npz"), names=[OBJECT], paths=np.array(paths),
-            **{f"{OBJECT}__masks": np.stack(masks), f"{OBJECT}__feats": np.zeros((n, 144), np.float32),
-               f"{OBJECT}__bboxes": np.full((n, 4), -1.0, np.float32)},
+            os.path.join(root, "yolo", f"{split}.npz"), names=[obj], paths=np.array(paths),
+            **{f"{obj}__masks": np.stack(masks), f"{obj}__feats": np.full((n, 144), feat, np.float32),
+               f"{obj}__bboxes": np.full((n, 4), -1.0, np.float32)},
         )
 
 
@@ -1141,6 +1202,291 @@ def phase_train_reference(trainer):
         raise AssertionError("card and CPU train steps disagree")
 
 
+def phase_second_object(work: str, dev):
+    """The composition's second object: ``main_nerf -O`` at full width on a
+    scene with the training scene's cameras that holds only BALL, whose
+    sidecar gives every view the constant feature 0.5 in all 144 entries."""
+    import torch
+
+    from focnerf_tpu_torch.apps import main_nerf
+    from focnerf_tpu_torch.config import parse_options
+
+    scene, ws = os.path.join(work, f"{SECOND}_scene"), os.path.join(work, f"{SECOND}_ws")
+    argv = [scene, "-O", "--workspace", ws, "--disable_yolo", "--iters", str(SECOND_ITERS), "--mesh_res", "0",
+            "--ckpt_interval", "10"]
+    write_training_scene(scene, parse_options(argv).scale, obj=SECOND, spheres=(BALL,), feat=0.5)
+    t0 = time.time()
+    (trainer,) = main_nerf.main(argv, device=dev)
+    torch.cuda.synchronize()
+    print(f"[compose] second object '{SECOND}' (radius {BALL[1]} at {BALL[0]}): main_nerf -O --iters {SECOND_ITERS} "
+          f"in {time.time() - t0:.1f} s with loading and the final eval, loss last 50 steps "
+          f"{sum(trainer.step_losses[-50:]) / 50:.5f}, val PSNR {trainer.last_eval_results['PSNR']:.3f} dB")
+    return ws
+
+
+def compose_layout(work: str, scale: float):
+    """The composition root (``ws_<obj>/checkpoints`` of both trained
+    objects, linked, and their sidecars under ``obj_feats/``, where
+    ``combined`` reads them) and a val split of both spheres together, with
+    occlusion, on the training scenes' cameras."""
+    root = os.path.join(work, "compose_root")
+    os.makedirs(os.path.join(root, "obj_feats"))
+    for obj, ws in ((OBJECT, "train_ws"), (SECOND, f"{SECOND}_ws")):
+        os.symlink(os.path.join(work, f"{ws}_{obj}"), os.path.join(root, f"ws_{obj}"))
+        shutil.copy(os.path.join(work, ws, "obj_feats", f"{obj}.npz"), os.path.join(root, "obj_feats"))
+    scene = os.path.join(work, "compose_scene")
+    write_training_scene(scene, scale, obj="scene", spheres=(SPHERE, BALL), splits=("val",))
+    return root, scene
+
+
+class PlainCompositorGuard:
+    """Records each call of the plain compositor (``composite_rays``,
+    ``composite_weights``) that is given a CUDA tensor, while the block runs."""
+
+    def __enter__(self):
+        import torch
+
+        from focnerf_tpu_torch.ops import composite as tcomp
+
+        self.module, self.saved, self.cuda_calls = tcomp, (tcomp.composite_rays, tcomp.composite_weights), []
+
+        def guard(fn):
+            def guarded(*args, **kwargs):
+                if any(torch.is_tensor(a) and a.is_cuda for a in (*args, *kwargs.values())):
+                    self.cuda_calls.append(fn.__name__)
+                return fn(*args, **kwargs)
+            return guarded
+
+        tcomp.composite_rays, tcomp.composite_weights = (guard(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.composite_rays, self.module.composite_weights = self.saved
+
+
+def read_composition_log(path: str):
+    """(per-view ms, {bg: {metric: value}}) from a composition's log.txt."""
+    views, summary = [], {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith("view "):
+                views.append(float(line.split(":")[1].split("ms")[0]))
+            elif line.startswith("bg="):
+                bg, rest = line.strip().split(": ", 1)
+                summary[bg[3:]] = {k.strip(): float(v) for k, v in (p.split(" = ") for p in rest.split(" | "))}
+    return views, summary
+
+
+def phase_composition(work: str, dev, smi: str):
+    """``combined`` over the val views of both spheres (occupancy path), then
+    ``editable --edit_object SECOND --offset_x 0.3``: each composites every
+    4096-ray chunk of every view through the forward kernel, and the plain
+    compositor sees no CUDA tensor. Returns each run's launches."""
+    import torch
+
+    from focnerf_tpu_torch.apps import combined, editable
+    from focnerf_tpu_torch.config import parse_options
+
+    root, scene = compose_layout(work, parse_options([work]).scale)
+    chunks = math.ceil(RES * RES / CHUNK)
+    want = dict(composite_rays_fused=chunks * VAL_VIEWS, composite_rays_resume=0, composite_rays_fused_backward=0,
+                hashgrid_table_grad=0)
+    runs, results = {}, {}
+    for name, mod, edit in (("combined", combined, []),
+                            ("editable", editable, ["--edit_object", SECOND, "--offset_x", "0.3"])):
+        out = os.path.join(work, f"{name}_out")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        with PlainCompositorGuard() as guard:
+            frames = mod.main([scene, "-O", "--ckpt_dir", root, "--workspace", out] + edit, device=dev)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        runs[name] = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        views_ms, summary = read_composition_log(os.path.join(out, "log.txt"))
+        results[name] = summary
+        print(f"[compose] {name} {' '.join(edit)}: K=2 objects, {len(frames)} val views of {RES}x{RES} in "
+              f"{wall:.2f} s with loading (per view {', '.join(f'{ms / 1e3:.3f}' for ms in views_ms)} s; "
+              f"mean after the first {sum(views_ms[1:]) / max(len(views_ms) - 1, 1) / 1e3:.3f} s/view), peak "
+              f"memory {peak:.3f} GiB, PSNR_w {summary['w']['PSNR']:.3f} dB, PSNR_b {summary['b']['PSNR']:.3f} dB, "
+              f"SSIM_w {summary['w']['SSIM']:.4f}; launches {runs[name]}; plain compositor calls on CUDA "
+              f"tensors: {len(guard.cuda_calls)} ({smi})")
+        if runs[name] != want or guard.cuda_calls:
+            raise AssertionError(f"{name}: launches {runs[name]}, want {want} ({chunks} chunks x {VAL_VIEWS} "
+                                 f"views); plain compositor on CUDA tensors {guard.cuda_calls}")
+        for v in range(VAL_VIEWS):
+            for sub in ("rgbs_w", "rgbs_b", "depth_w", "ground_truth_w"):
+                if not os.path.exists(os.path.join(out, sub, f"{v:04d}.png")):
+                    raise AssertionError(f"{name}: no {sub}/{v:04d}.png")
+    if not results["combined"]["w"]["PSNR"] >= 20.0:
+        raise AssertionError(f"composed PSNR_w {results['combined']['w']['PSNR']} dB, want >= 20")
+    out = os.path.join(work, "editable_out")
+    if not (os.path.exists(os.path.join(out, "composite.mp4"))
+            or os.path.exists(os.path.join(out, f"composite_{VAL_VIEWS - 1:04d}.png"))):
+        raise AssertionError("editable wrote neither composite.mp4 nor its PNG frames")
+    return runs, root, scene
+
+
+def _compare(label: str, gpu, cpu):
+    import torch
+
+    if not all(torch.isfinite(t).all() for t in gpu):
+        raise AssertionError(f"{label}: non-finite render on the card")
+    diff = torch.cat([(g.cpu() - c).abs().reshape(-1) for g, c in zip(gpu, cpu)])
+    far = float((diff > 1e-3).float().mean())
+    print(f"[reference] {label}, card vs CPU: max_abs_err {float(diff.max()):.3g}, mean "
+          f"{float(diff.mean()):.3g}, share > 1e-3: {far:.4f} (limits: mean 1e-4, share 0.01)")
+    # sums in other orders and libm vs CUDA exp/pow; on the occupancy path a
+    # candidate on a cell boundary may flip cells, which moves that ray's samples
+    if not (float(diff.mean()) <= 1e-4 and far <= 0.01):
+        raise AssertionError(f"{label}: card and CPU renders disagree")
+
+
+def phase_composition_reference(root: str, scene: str, dev):
+    """On the trained objects, in fp32: one 96x96 val view composed on the
+    card (kernel) and on the CPU (plain versions) from the same checkpoints,
+    plainly, with the translated edit and with a rotate_z 90 edit (uniform
+    path, 512 steps); then, on the card, [A, A] against [A] (bit for bit)
+    and [A] through ``compose_image`` against ``render_image`` of A (1e-5)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps.combined import load_composition
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.data.provider import NeRFDataset
+    from focnerf_tpu_torch.ops.composite import composite_rays_fused
+    from focnerf_tpu_torch.render.compose import compose_image, rotation_matrices, union_occupancy_bits
+    from focnerf_tpu_torch.render.renderer import render_image
+
+    opt = parse_options([scene, "-O", "--ckpt_dir", root])
+    pose = NeRFDataset(opt.dataset_options(), split="val", device="cpu").poses[0]
+    intr = np.array([115.2, 115.2, 48, 48], np.float32)
+    loaded = {where: load_composition(opt, device=where) for where in (dev, "cpu")}
+    objs, cfg = loaded[dev][:2]
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)  # no bf16 flips
+    offsets = np.zeros((len(objs), 3), np.float32)
+    offsets[objs.index(SECOND), 0] = 0.3
+    degrees = np.zeros((len(objs), 3), np.float32)
+    degrees[objs.index(SECOND), 2] = 90.0
+    march = dict(dt_gamma=opt.dt_gamma, max_steps=opt.max_steps, slab=max(opt.train_slab, 64))
+    cases = {
+        "composition, occupancy path": (None, None, True),
+        "translated edit (offset_x 0.3), occupancy path": (offsets, None, True),
+        "rotate_z 90 edit, uniform path (512 steps)": (None, degrees, False),
+    }
+    for label, (offs, degs, occupancy) in cases.items():
+        renders = {}
+        for where, batch in ((dev, CHUNK), ("cpu", 1024)):
+            _, _, params, feats, occ, _ = loaded[where]
+            kw = dict(march, occ_bits=union_occupancy_bits(occ, offs, cfg.bound)) if occupancy else dict(num_steps=512)
+            rots = None if degs is None else rotation_matrices(degs, device=where)
+            composite_rays_fused.launches = 0
+            t0 = time.time()
+            renders[where] = compose_image(params, cfg32, pose, intr, 96, 96, feats, offs, rots, bg_color=0.0,
+                                           max_ray_batch=batch, **kw)
+            seconds = time.time() - t0
+            if torch.device(where).type == "cuda" and composite_rays_fused.launches != math.ceil(96 * 96 / CHUNK):
+                raise AssertionError(f"{label}: {composite_rays_fused.launches} kernel launches on the card")
+        print(f"[reference] {label}: 96x96 fp32 view, K=2, the CPU's render took {seconds:.1f} s; object share "
+              f"{float((renders['cpu'][0][..., 3] > 0.5).float().mean()):.3f}")
+        _compare(f"{label} (rgba, depth)", renders[dev], renders["cpu"])
+
+    # identities on the card, at the CLI's (bf16) model
+    _, _, params, feats, occ, _ = loaded[dev]
+    k = objs.index(OBJECT)
+    a, feat_a, bits_a = params[k], feats[k:k + 1], occ[k:k + 1]
+    intr256 = np.array([307.2, 307.2, 128, 128], np.float32)
+    common = dict(bg_color=0.0, **march)
+    one = compose_image([a], cfg, pose, intr256, 256, 256, feat_a,
+                        occ_bits=union_occupancy_bits(bits_a, None, cfg.bound), **common)
+    two = compose_image([a, a], cfg, pose, intr256, 256, 256, feat_a.repeat(2, 1), np.zeros((2, 3), np.float32),
+                        occ_bits=union_occupancy_bits(bits_a.repeat(2, 1, 1), np.zeros((2, 3)), cfg.bound), **common)
+    same = torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    image, depth = render_image(a, cfg, pose, intr256, 256, 256, obj_feat=feat_a[0],
+                                occ_bits=bits_a[0], **common)
+    solo = max(float((one[0][..., :3] - image).abs().max()), float((one[1] - depth).abs().max()))
+    print(f"[identity] 256x256 view on the card: composing [{OBJECT}, {OBJECT}] equals composing [{OBJECT}] "
+          f"bit for bit: {same}; [{OBJECT}] composed against render_image of it (image, depth): max_abs_err "
+          f"{solo:.3g} (limit 1e-5); object share {float((one[0][..., 3] > 0.5).float().mean()):.3f}")
+    if not (same and solo <= 1e-5):
+        raise AssertionError("composition identities fail on the card")
+    return (cfg, params, feats, occ), march, pose
+
+
+def phase_compose_profile(loaded, march, pose):
+    """Where one composed 800x800 view's time goes (K=2, occupancy path, the
+    CLI's model, ``loaded`` on the card; the CLIs warmed this path up):
+    CUDA events around each stage the compositor calls, then the same view
+    under torch.profiler (device busy share, top kernels)."""
+    import collections
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from focnerf_tpu_torch.models import nerf
+    from focnerf_tpu_torch.render import compose
+    from focnerf_tpu_torch.utils.measure import device_events
+
+    cfg, params, feats, occ = loaded
+    intr = np.array([1.2 * RES, 1.2 * RES, RES / 2, RES / 2], np.float32)
+    kw = dict(occ_bits=compose.union_occupancy_bits(occ, None, cfg.bound), bg_color=0.0, **march)
+
+    def view():
+        compose.compose_image(params, cfg, pose, intr, RES, RES, feats, **kw)
+        torch.cuda.synchronize()
+
+    spans = collections.defaultdict(list)
+    patched = [(compose, n) for n in ("near_far_from_aabb", "march_rays", "density_fn", "color_fn",
+                                      "encode_objfeat", "composite_rays_fused")] + [(nerf, "hashgrid_encode")]
+    saved = [(m, n, getattr(m, n)) for m, n in patched]
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return run
+
+    for m, n, fn in saved:
+        setattr(m, n, timed(n, fn))
+    try:
+        t0 = time.perf_counter()
+        view()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    stage = {n: sum(s.elapsed_time(e) for s, e in v) for n, v in spans.items()}
+    print(f"[compose-profile] one {RES}x{RES} composed view (K=2, occupancy path), wall {wall:.1f} ms; event spans "
+          "(ms, share of wall; hashgrid_encode is inside density_fn): "
+          + ", ".join(f"{n} {ms:.1f} ({ms / wall:.1%}, {len(spans[n])} calls)" for n, ms in
+                      sorted(stage.items(), key=lambda kv: -kv[1])))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        view()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy = sum(ms for _, ms in events)
+    by_name = collections.Counter()
+    for name, ms in events:
+        by_name[name] += ms
+    print(f"[compose-profile] under torch.profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}; "
+          f"idle {1 - busy / wall:.1%}), {len(events)} device events")
+    for name, ms in by_name.most_common(6):
+        print(f"[compose-profile]   {ms:8.2f} ms {ms / busy:6.1%}  {name[:110]}")
+    ms = sum(v for k, v in by_name.items() if "composite_forward_kernel" in k)
+    print(f"[compose-profile]   kernel composite_forward_kernel: {ms:.3f} ms ({ms / max(busy, 1e-9):.2%} of "
+          "device time)")
+
+
 def main() -> int:
     import torch
 
@@ -1169,9 +1515,13 @@ def main() -> int:
     phase_reference(params, cfg, bits)
     phase_iterative_reference(trainer)
     phase_train_reference(trainer)
+    phase_second_object(work, dev)
+    composed, root, scene = phase_composition(work, dev, smi)
+    phase_compose_profile(*phase_composition_reference(root, scene, dev))
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
-    line = [{**k, "launches": launches[k["name"]]} for k in kernels]
+    line = [{**k, "launches": launches[k["name"]], "launches_compose": composed["combined"][k["name"]],
+             "launches_edit": composed["editable"][k["name"]]} for k in kernels]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -162,6 +162,19 @@ def render_rays_occupancy(
     }
 
 
+def padded_rays(pose, intrinsics, H: int, W: int, max_ray_batch: int, device):
+    """A view's rays (rays_o, rays_d) [H * W + pad, 3], padded to whole
+    chunks of ``max_ray_batch`` with rays o = 0, d = +z."""
+    from focnerf_tpu_torch.core.rays import get_rays
+
+    rays = get_rays(pose, intrinsics, H, W, device=device)
+    pad = (-H * W) % max_ray_batch
+    rd_pad = rays["rays_d"].new_zeros((pad, 3))
+    rd_pad[:, 2] = 1.0
+    return (torch.cat([rays["rays_o"], rays["rays_o"].new_zeros((pad, 3))]),
+            torch.cat([rays["rays_d"], rd_pad]))
+
+
 @torch.no_grad()
 def render_image(
     params,
@@ -192,21 +205,14 @@ def render_image(
     rays (o=0, d=+z). Returns (image [H, W, 3], depth [H, W]) on the params'
     device.
     """
-    from focnerf_tpu_torch.core.rays import get_rays
-
     if upsample_steps > 0:
         raise NotImplementedError("upsample_steps > 0 (sample_pdf) is not ported yet")
     device = params["grid"].device
     aabb = _aabb(cfg, aabb, device)  # once: a per-chunk host copy would sync
-    rays = get_rays(pose, intrinsics, H, W, device=device)
+    ro, rd = padded_rays(pose, intrinsics, H, W, max_ray_batch, device)
     n = H * W
-    pad = (-n) % max_ray_batch
-    ro = torch.cat([rays["rays_o"], rays["rays_o"].new_zeros((pad, 3))])
-    rd_pad = rays["rays_d"].new_zeros((pad, 3))
-    rd_pad[:, 2] = 1.0
-    rd = torch.cat([rays["rays_d"], rd_pad])
     images, depths = [], []
-    for i in range(0, n + pad, max_ray_batch):
+    for i in range(0, ro.shape[0], max_ray_batch):
         o, d = ro[i : i + max_ray_batch], rd[i : i + max_ray_batch]
         if occ_bits is not None:
             res = render_rays_occupancy(

@@ -1,21 +1,39 @@
-"""Evaluation metrics: PSNR and SSIM.
+"""Evaluation metrics: PSNR, SSIM, MS-SSIM and LPIPS (or its substitute).
 
-Twin of focnerf_tpu/train/meters.py (PSNRMeter, SSIMMeter; nerf/utils.py
-:545-621). SSIM's separable Gaussian is two banded-matrix products in fp32,
-as in the JAX package. LPIPS (weight-gated there) and MS-SSIM are not
-ported.
+Twin of focnerf_tpu/train/meters.py (PSNRMeter, SSIMMeter, LPIPSMeter;
+nerf/utils.py:545-658). SSIM's separable Gaussian is two banded-matrix
+products in fp32, as in the JAX package; MS-SSIM is its dyadic pyramid.
+
+Meters take [H, W, C] images in [0, 1], as numpy arrays or torch tensors on
+any device: a render on the card is measured on the card, and only the
+scalar comes back to the host.
+
+``LPIPSMeter`` looks where the JAX package does, in its order: the npz
+weights of focnerf_tpu/train/lpips_jax.py (that network is not ported, so a
+weights file raises ``NotImplementedError`` rather than being skipped), then
+the torch ``lpips`` package, else the weight-free substitute ``1 - ms_ssim``,
+labelled ``LPIPS* (ms-ssim-dist)``.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
 
-def psnr(pred: torch.Tensor, gt: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
-    mse = ((pred.float() - gt.float()) ** 2).mean()
+def _as_pair(pred, gt):
+    """(pred, gt) as float32 tensors on pred's device (numpy -> CPU)."""
+    pred = torch.as_tensor(pred)
+    gt = torch.as_tensor(gt, device=pred.device)
+    return pred.float(), gt.float()
+
+
+def psnr(pred, gt, max_val: float = 1.0) -> torch.Tensor:
+    pred, gt = _as_pair(pred, gt)
+    mse = ((pred - gt) ** 2).mean()
     return -10.0 * torch.log10(torch.clamp(mse, min=1e-20) / (max_val**2))
 
 
@@ -36,12 +54,12 @@ def _band_matrix(n_in: int, size: int, sigma: float) -> np.ndarray:
     return B
 
 
-def ssim(pred: torch.Tensor, gt: torch.Tensor, max_val: float = 1.0,
-         kernel_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
-    """Mean structural similarity of [H, W, C] (or [B, H, W, C]) images."""
+def _ssim_parts(pred, gt, max_val: float = 1.0, kernel_size: int = 11, sigma: float = 1.5):
+    """Single-scale SSIM of [H, W, C] (or [B, H, W, C]) images -> (mean full
+    index, mean contrast/structure term); the second feeds ``ms_ssim``."""
+    pred, gt = _as_pair(pred, gt)
     if pred.dim() == 3:
         pred, gt = pred[None], gt[None]
-    pred, gt = pred.float(), gt.float()
     Bh = torch.from_numpy(_band_matrix(pred.shape[1], kernel_size, sigma)).to(pred.device)
     Bw = torch.from_numpy(_band_matrix(pred.shape[2], kernel_size, sigma)).to(pred.device)
 
@@ -57,7 +75,52 @@ def ssim(pred: torch.Tensor, gt: torch.Tensor, max_val: float = 1.0,
     sig_pg = filt(pred * gt) - mu_pg
     cs = (2 * sig_pg + c2) / (sig_p + sig_g + c2)
     lum = (2 * mu_pg + c1) / (mu_p2 + mu_g2 + c1)
-    return (lum * cs).mean()
+    return (lum * cs).mean(), cs.mean()
+
+
+def ssim(pred, gt, max_val: float = 1.0, kernel_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
+    """Mean structural similarity of [H, W, C] (or [B, H, W, C]) images."""
+    return _ssim_parts(pred, gt, max_val, kernel_size, sigma)[0]
+
+
+_MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)  # Wang et al. 2003
+
+
+def _pool2(img: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool over H, W of [B, H, W, C]."""
+    img = img[:, : img.shape[1] // 2 * 2, : img.shape[2] // 2 * 2]
+    return 0.25 * (img[:, 0::2, 0::2] + img[:, 1::2, 0::2] + img[:, 0::2, 1::2] + img[:, 1::2, 1::2])
+
+
+def ms_ssim(pred, gt, max_val: float = 1.0, kernel_size: int = 11) -> torch.Tensor:
+    """Multi-scale SSIM: contrast/structure over a dyadic pyramid, luminance
+    at the coarsest scale. Scales shrink for small images (each needs
+    ``kernel_size`` valid pixels after pooling); the weights renormalize."""
+    pred, gt = _as_pair(pred, gt)
+    if pred.dim() == 3:
+        pred, gt = pred[None], gt[None]
+    side = min(pred.shape[1], pred.shape[2])
+    n_scales = 1
+    while n_scales < 5 and side // 2 >= kernel_size:
+        n_scales += 1
+        side //= 2
+    w = np.asarray(_MSSSIM_WEIGHTS[:n_scales])
+    w = w / w.sum()
+    out = torch.ones((), device=pred.device)
+    for s in range(n_scales):
+        full, cs = _ssim_parts(pred, gt, max_val, kernel_size)
+        # cs can dip below 0 on adversarial inputs: clamp so the power is real
+        if s == n_scales - 1:
+            out = out * torch.clamp(full, min=1e-6) ** float(w[s])
+        else:
+            out = out * torch.clamp(cs, min=1e-6) ** float(w[s])
+            pred, gt = _pool2(pred), _pool2(gt)
+    return out
+
+
+def rgba_ssim(pred_rgba, gt_rgba) -> float:
+    """SSIM over RGBA images, channels averaged (COMBINED.py:295-332)."""
+    return float(ssim(pred_rgba, gt_rgba))
 
 
 class Meter:
@@ -87,3 +150,44 @@ def PSNRMeter() -> Meter:
 
 def SSIMMeter() -> Meter:
     return Meter("SSIM", ssim)
+
+
+def default_weight_paths():
+    """Where focnerf_tpu/train/lpips_jax.py looks for its AlexNet weights."""
+    env = os.environ.get("FOCNERF_LPIPS_NPZ", "")
+    paths = [env] if env else []
+    paths.append(os.path.expanduser("~/.cache/focnerf/lpips_alex.npz"))
+    return paths
+
+
+class LPIPSMeter(Meter):
+    """LPIPS through the torch ``lpips`` package, else ``1 - ms_ssim`` under
+    the name ``LPIPS* (ms-ssim-dist)`` (lower is better, as LPIPS), so a log
+    never passes the substitute off as the real metric."""
+
+    def __init__(self, net: str = "alex"):
+        if net == "alex":
+            found = [p for p in default_weight_paths() if p and os.path.exists(p)]
+            if found:
+                raise NotImplementedError(
+                    f"LPIPS weights found at {found[0]}, but the network that reads them "
+                    "(focnerf_tpu/train/lpips_jax.py) is not ported yet; move the file to "
+                    "measure with the lpips package or the ms-ssim substitute"
+                )
+        try:  # pragma: no cover - depends on an optional package
+            import lpips
+
+            self._net = lpips.LPIPS(net=net).eval()
+            self.available = True
+            super().__init__(f"LPIPS ({net})", self._lpips)
+        except Exception:
+            self._net = None
+            self.available = False
+            super().__init__("LPIPS* (ms-ssim-dist)", lambda p, g: 1.0 - ms_ssim(p, g))
+
+    def _lpips(self, pred, gt):  # pragma: no cover - depends on an optional package
+        pred, gt = _as_pair(pred, gt)
+        net = self._net.to(pred.device)
+        to = lambda x: x.permute(2, 0, 1)[None] * 2 - 1  # noqa: E731
+        with torch.no_grad():
+            return net(to(pred), to(gt))
