@@ -38,10 +38,10 @@ non-zero exit code and no result line:
      ``composite_rays_resume`` once per round of the eval, the loss must
      fall by half, the val PSNR must reach 20 dB and a checkpoint must
      exist; then ``--test -O`` serves from the trained checkpoint (a
-     trained, sparse grid); the val views are evaluated with ``iter``,
-     ``iter_dev`` and ``oneshot`` (s/view, rounds, launches, PSNR: the two
-     iterative renders must agree within 1e-4 mean per view and neither
-     may fall 0.5 dB below ``oneshot``); 5 more steps
+     trained, sparse grid); the val views are evaluated with ``iter`` (all
+     4), ``iter_dev`` (2) and ``oneshot`` (1) (s/view, rounds, launches,
+     PSNR: the two iterative renders must agree within 1e-4 mean per view
+     and neither may fall 0.5 dB below ``oneshot`` on its view); 5 more steps
      are profiled: stage times, the device's busy share and top kernels;
      nvidia-smi samples the SM clock beside each timed training window and
      the table-gradient timing; on one train step at each of the slabs 128,
@@ -62,17 +62,36 @@ non-zero exit code and no result line:
      kernel launched once per 4096-ray chunk of every view and the plain
      compositor given no CUDA tensor; then ``editable --edit_object ball
      --offset_x 0.3`` the same way, with its video (or PNG frames);
-  8. composition reference: a 96x96 view composed on the card and on the
+  8. composition reference: a 64x64 view composed on the card and on the
      CPU from the same checkpoints (plain, translated edit, rotate_z 90 on
      the uniform path at 512 steps) must agree as the render checks do;
      composing [A, A] must equal [A] bit for bit, and [A] composed must
      equal ``render_image`` of A within 1e-5; then one composed 800x800
-     view is profiled by stage and under torch.profiler.
+     view is profiled by stage and under torch.profiler;
+  9. baked reference: the shear-warp renderer on the card against the CPU
+     on an analytic two-blob volume at 64^3, 96x96 views from six poses
+     (every axis and flip), dense sh_deg 0 and 2 and uint8-resident: the
+     core in fp32 under the render gates, ``render_baked`` (bf16
+     resampling) within BAKED_BF16_PSNR dB; shift, rotation by 90 degrees
+     and merge to the bit, rotation by 30 degrees within 1e-5;
+ 10. baked composition: ``combined --baked`` (each object baked at 256^3,
+     its gate report written, merged) and ``editable --baked --bake_quantize
+     --edit_object ball --offset_x 0.3 --rotate_z 90`` over the same val
+     views, through phase 7's runner (launch counts, plain-compositor
+     guard): ``[baked]`` lines with the bake, gate, merge and quantization
+     seconds, ms per frame, peak memory, each object's gate PSNR and PSNR_w
+     beside phase 7's; PSNR_w >= 20 dB and the forward kernel launched (the
+     gate's exact probes);
+ 11. baked profile: one 800x800 frame at 256^3 (dense, uint8-resident, and
+     dense sh_deg 2) by stage, and the device's busy share;
+ 12. procedural: ``make_hard_scene`` at gt_res 256 and 800x800 on the card;
+     ms per GT frame; a val PNG within 1/255 of its frame.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the training path (``launches``), in the
-``combined`` run (``launches_compose``) and in the ``editable`` run
-(``launches_edit``).
+``combined`` run (``launches_compose``), in the ``editable`` run
+(``launches_edit``) and in the two ``--baked`` runs
+(``launches_baked_compose``, ``launches_baked_edit``).
 """
 
 from __future__ import annotations
@@ -89,13 +108,22 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 VIEWS, RES, CHUNK = 4, 800, 4096
 TRAIN_ITERS, TRAIN_VIEWS, VAL_VIEWS = 500, 50, 4
 CAMERA_RADIUS, SPHERE_RADIUS = 3.0, 0.8  # ngp units; the bound box is [-2, 2]^3
+# the composition's val cameras: every eye outside the bound box, as the
+# shear-warp renderer needs (each coordinate-max >= 3.5 sin 60 / sqrt 2 > 2)
+COMPOSE_RADIUS = 3.5
 OBJECT = "sphere"  # the training scene's one object
 # (centre, radius, colour where y < 0, colour where y >= 0) in ngp units
 SPHERE = ((0.0, 0.0, 0.0), SPHERE_RADIUS, (0.9, 0.2, 0.1), (0.1, 0.3, 0.9))
 BALL = ((0.0, 0.0, 1.35), 0.45, (0.95, 0.8, 0.1), (0.2, 0.8, 0.2))  # the composition's second object
 SECOND, SECOND_ITERS = "ball", 200
+# views each eval renderer renders in phase 5 (the rest: VAL_VIEWS); cut
+# from 4 to keep the smoke near half its time limit on a slow host
+EVAL_VIEWS = {"iter_dev": 2, "oneshot": 1}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# the card's bf16 shear-warp against the CPU's fp32 render of the same volume
+BAKED_BF16_PSNR = 35.0
+GT_RES = 256  # the procedural scene's volume
 
 
 def counters():
@@ -721,7 +749,7 @@ def sphere_view(pose, fl: float, spheres=(SPHERE,)):
 
 
 def write_training_scene(root: str, scale: float, obj: str = OBJECT, spheres=(SPHERE,), feat: float = 0.0,
-                         splits=("train", "val", "test")):
+                         splits=("train", "val", "test"), radius: float = CAMERA_RADIUS):
     """Blender-layout ``splits`` of analytic spheres at RES^2 (focal 1.2 *
     width), cameras on a sphere of CAMERA_RADIUS (ngp units) looking at the
     origin, and the object-mask sidecar that YOLO preprocessing would write
@@ -729,7 +757,8 @@ def write_training_scene(root: str, scale: float, obj: str = OBJECT, spheres=(SP
     the feature ``feat`` in all 144 entries of every view). FOC-NeRF takes an
     object's alpha from its mask, so the mask is what makes the pixels
     around the object transparent in training. Every scene draws the same
-    cameras (train, then val, then test), whichever splits it writes."""
+    cameras (train, then val, then test) on a sphere of ``radius``,
+    whichever splits it writes."""
     import numpy as np
 
     from focnerf_tpu_torch.core.camera import rand_poses
@@ -738,7 +767,7 @@ def write_training_scene(root: str, scale: float, obj: str = OBJECT, spheres=(SP
     rng = np.random.default_rng(7)
     os.makedirs(os.path.join(root, "yolo"), exist_ok=True)
     for split, n in (("train", TRAIN_VIEWS), ("val", VAL_VIEWS), ("test", VIEWS)):
-        poses = rand_poses(rng, n, radius=CAMERA_RADIUS)
+        poses = rand_poses(rng, n, radius=radius)
         if split not in splits:
             continue
         os.makedirs(os.path.join(root, split), exist_ok=True)
@@ -905,7 +934,7 @@ def phase_train_profile(trainer, ds, dev, steps: int = 5):
     from focnerf_tpu_torch.ops.marching import march_rays_skip
     from focnerf_tpu_torch.render.renderer import default_aabb
     from focnerf_tpu_torch.train.steps import occupancy_loss, step_draws
-    from focnerf_tpu_torch.utils.measure import device_events
+    from focnerf_tpu_torch.utils.measure import busy_ms, device_events
 
     state, cfg, slab = trainer.state, trainer.cfg, trainer.active_slab
     occ = trainer._occ_bits_for_batch()
@@ -952,7 +981,7 @@ def phase_train_profile(trainer, ds, dev, steps: int = 5):
             trainer.train_step_once(ds)
         wall = (clock() - t0) * 1e3
     events = device_events(prof)
-    busy = sum(ms for _, ms in events)
+    busy = busy_ms(prof)
     by_name = {}
     for name, ms in events:
         by_name[name] = by_name.get(name, 0.0) + ms
@@ -1053,15 +1082,17 @@ def phase_backward_mask(trainer, ds, dev):
 def phase_eval_renderers(trainer, ds):
     """The trained model's val views through each eval renderer (the EMA
     params, as ``evaluate``): s/view, rounds per view, composite_rays_resume
-    launches and val PSNR of each. ``iter`` and ``iter_dev`` run the same
+    launches and val PSNR of each, ``iter`` on every view, ``iter_dev`` on
+    the first EVAL_VIEWS["iter_dev"] and ``oneshot`` (~25-36 s a view) on
+    the first EVAL_VIEWS["oneshot"]. ``iter`` and ``iter_dev`` run the same
     per-ray rounds (only the batch shapes of the bf16 MLP products differ):
-    they must agree within 1e-4 mean absolute per view, and neither may fall
-    more than 0.5 dB below ``oneshot``."""
+    they must agree within 1e-4 mean absolute per view, and on the views
+    ``oneshot`` renders neither may fall more than 0.5 dB below it."""
     import numpy as np
     import torch
 
     from focnerf_tpu_torch.render.iterative import render_rays_iterative
-    from focnerf_tpu_torch.train.meters import psnr
+    from focnerf_tpu_torch.train.meters import LPIPSMeter, psnr
 
     params, kept = trainer.state.ema_params, trainer.eval_renderer
     images, rows = {}, {}
@@ -1071,7 +1102,8 @@ def phase_eval_renderers(trainer, ds):
         reset_counts()
         render_rays_iterative.rounds = 0
         images[renderer], seconds, psnrs = [], [], []
-        for v in range(ds.n_views):
+        n_views = min(ds.n_views, EVAL_VIEWS.get(renderer, ds.n_views))
+        for v in range(n_views):
             view = ds.eval_view(v)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1084,23 +1116,34 @@ def phase_eval_renderers(trainer, ds):
             psnrs.append(float(psnr(torch.clamp(img, 0.0, 1.0), gt)))
             images[renderer].append(img)
         launches, rounds = read_counts(), render_rays_iterative.rounds
-        rows[renderer] = (float(np.mean(psnrs)), launches["composite_rays_resume"])
-        print(f"[eval] {renderer}: {ds.n_views} val views of {ds.W}x{ds.H}, s/view {np.mean(seconds):.3f} "
-              f"(views {', '.join(f'{x:.3f}' for x in seconds)}), rounds/view {rounds / ds.n_views:.1f}, "
+        rows[renderer] = psnrs
+        print(f"[eval] {renderer}: {n_views} val views of {ds.W}x{ds.H}, s/view {np.mean(seconds):.3f} "
+              f"(views {', '.join(f'{x:.3f}' for x in seconds)}), rounds/view {rounds / n_views:.1f}, "
               f"composite_rays_resume launches {launches['composite_rays_resume']}, val PSNR "
-              f"{rows[renderer][0]:.3f} dB (views {', '.join(f'{x:.3f}' for x in psnrs)})")
+              f"{np.mean(psnrs):.3f} dB (views {', '.join(f'{x:.3f}' for x in psnrs)})")
         if renderer != "oneshot" and launches["composite_rays_resume"] != rounds:
             raise AssertionError(f"{renderer}: {rounds} rounds, launches {launches}")
     trainer.eval_renderer = kept
+    gt = ds.eval_view(0)["pixels"].reshape(ds.H, ds.W, -1)
+    gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:]) if gt.shape[-1] == 4 else gt
+    meter, pred = LPIPSMeter(), torch.clamp(images["iter"][0], 0.0, 1.0)
+    meter.update(pred, gt)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meter.update(pred, gt)
+    torch.cuda.synchronize()
+    print(f"[eval] the evaluate meter {meter.name} on one {ds.W}x{ds.H} view: {time.perf_counter() - t0:.4f} s "
+          f"after a warm-up (value {meter.measure():.4f}), paid per view by every evaluate()")
     diffs = [float((a - b).abs().mean()) for a, b in zip(images["iter"], images["iter_dev"])]
     print(f"[eval] iter vs iter_dev mean absolute difference per view: "
           f"{', '.join(f'{x:.3g}' for x in diffs)} (limit 1e-4)")
     if not max(diffs) <= 1e-4:
         raise AssertionError(f"iter and iter_dev renders differ: {diffs}")
+    shared = len(rows["oneshot"])
     for renderer in ("iter", "iter_dev"):
-        if not rows[renderer][0] >= rows["oneshot"][0] - 0.5:
-            raise AssertionError(f"{renderer} val PSNR {rows[renderer][0]} more than 0.5 dB below "
-                                 f"oneshot's {rows['oneshot'][0]}")
+        if not np.mean(rows[renderer][:shared]) >= np.mean(rows["oneshot"]) - 0.5:
+            raise AssertionError(f"{renderer} val PSNR {rows[renderer][:shared]} more than 0.5 dB below "
+                                 f"oneshot's {rows['oneshot']} on the same views")
 
 
 def phase_iterative_reference(trainer):
@@ -1228,14 +1271,14 @@ def compose_layout(work: str, scale: float):
     """The composition root (``ws_<obj>/checkpoints`` of both trained
     objects, linked, and their sidecars under ``obj_feats/``, where
     ``combined`` reads them) and a val split of both spheres together, with
-    occlusion, on the training scenes' cameras."""
+    occlusion, on cameras at COMPOSE_RADIUS."""
     root = os.path.join(work, "compose_root")
     os.makedirs(os.path.join(root, "obj_feats"))
     for obj, ws in ((OBJECT, "train_ws"), (SECOND, f"{SECOND}_ws")):
         os.symlink(os.path.join(work, f"{ws}_{obj}"), os.path.join(root, f"ws_{obj}"))
         shutil.copy(os.path.join(work, ws, "obj_feats", f"{obj}.npz"), os.path.join(root, "obj_feats"))
     scene = os.path.join(work, "compose_scene")
-    write_training_scene(scene, scale, obj="scene", spheres=(SPHERE, BALL), splits=("val",))
+    write_training_scene(scene, scale, obj="scene", spheres=(SPHERE, BALL), splits=("val",), radius=COMPOSE_RADIUS)
     return root, scene
 
 
@@ -1277,13 +1320,52 @@ def read_composition_log(path: str):
     return views, summary
 
 
+def run_composition_cli(tag: str, name: str, mod, argv, out: str, dev, smi: str, want=None):
+    """One run of a composition CLI (``combined`` or ``editable``) writing
+    to ``out``, under the plain-compositor guard, with the launch counts set
+    to 0 just before it and read just after. Fails when the plain compositor
+    saw a CUDA tensor, when the launches differ from ``want`` (None: when the
+    composite forward never launched), or when a view's outputs are missing.
+    Returns (launches, per-view ms, {bg: {metric: value}}, peak GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    with PlainCompositorGuard() as guard:
+        frames = mod.main(argv, device=dev)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    views_ms, summary = read_composition_log(os.path.join(out, "log.txt"))
+    print(f"[{tag}] {name}: K=2 objects, {len(frames)} val views of {RES}x{RES} in "
+          f"{wall:.2f} s with loading (per view {', '.join(f'{ms / 1e3:.4f}' for ms in views_ms)} s; "
+          f"mean after the first {sum(views_ms[1:]) / max(len(views_ms) - 1, 1) / 1e3:.4f} s/view), peak "
+          f"memory {peak:.3f} GiB, PSNR_w {summary['w']['PSNR']:.3f} dB, PSNR_b {summary['b']['PSNR']:.3f} dB, "
+          f"SSIM_w {summary['w']['SSIM']:.4f}; launches {launches}; plain compositor calls on CUDA "
+          f"tensors: {len(guard.cuda_calls)} ({smi})")
+    launched = launches == want if want is not None else launches["composite_rays_fused"] > 0
+    if not launched or guard.cuda_calls:
+        raise AssertionError(f"{name}: launches {launches}, want {want or 'composite_rays_fused > 0'}; "
+                             f"plain compositor on CUDA tensors {guard.cuda_calls}")
+    for v in range(VAL_VIEWS):
+        for sub in ("rgbs_w", "rgbs_b", "depth_w", "ground_truth_w"):
+            if not os.path.exists(os.path.join(out, sub, f"{v:04d}.png")):
+                raise AssertionError(f"{name}: no {sub}/{v:04d}.png")
+    if mod.__name__.endswith("editable") and not (
+            os.path.exists(os.path.join(out, "composite.mp4"))
+            or os.path.exists(os.path.join(out, f"composite_{VAL_VIEWS - 1:04d}.png"))):
+        raise AssertionError(f"{name} wrote neither composite.mp4 nor its PNG frames")
+    return launches, views_ms, summary, peak
+
+
 def phase_composition(work: str, dev, smi: str):
     """``combined`` over the val views of both spheres (occupancy path), then
     ``editable --edit_object SECOND --offset_x 0.3``: each composites every
     4096-ray chunk of every view through the forward kernel, and the plain
-    compositor sees no CUDA tensor. Returns each run's launches."""
-    import torch
-
+    compositor sees no CUDA tensor. Returns each run's launches and metrics."""
     from focnerf_tpu_torch.apps import combined, editable
     from focnerf_tpu_torch.config import parse_options
 
@@ -1295,38 +1377,12 @@ def phase_composition(work: str, dev, smi: str):
     for name, mod, edit in (("combined", combined, []),
                             ("editable", editable, ["--edit_object", SECOND, "--offset_x", "0.3"])):
         out = os.path.join(work, f"{name}_out")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.time()
-        with PlainCompositorGuard() as guard:
-            frames = mod.main([scene, "-O", "--ckpt_dir", root, "--workspace", out] + edit, device=dev)
-            torch.cuda.synchronize()
-        wall = time.time() - t0
-        runs[name] = read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        views_ms, summary = read_composition_log(os.path.join(out, "log.txt"))
-        results[name] = summary
-        print(f"[compose] {name} {' '.join(edit)}: K=2 objects, {len(frames)} val views of {RES}x{RES} in "
-              f"{wall:.2f} s with loading (per view {', '.join(f'{ms / 1e3:.3f}' for ms in views_ms)} s; "
-              f"mean after the first {sum(views_ms[1:]) / max(len(views_ms) - 1, 1) / 1e3:.3f} s/view), peak "
-              f"memory {peak:.3f} GiB, PSNR_w {summary['w']['PSNR']:.3f} dB, PSNR_b {summary['b']['PSNR']:.3f} dB, "
-              f"SSIM_w {summary['w']['SSIM']:.4f}; launches {runs[name]}; plain compositor calls on CUDA "
-              f"tensors: {len(guard.cuda_calls)} ({smi})")
-        if runs[name] != want or guard.cuda_calls:
-            raise AssertionError(f"{name}: launches {runs[name]}, want {want} ({chunks} chunks x {VAL_VIEWS} "
-                                 f"views); plain compositor on CUDA tensors {guard.cuda_calls}")
-        for v in range(VAL_VIEWS):
-            for sub in ("rgbs_w", "rgbs_b", "depth_w", "ground_truth_w"):
-                if not os.path.exists(os.path.join(out, sub, f"{v:04d}.png")):
-                    raise AssertionError(f"{name}: no {sub}/{v:04d}.png")
+        runs[name], _, results[name], _ = run_composition_cli(
+            "compose", " ".join([name] + edit), mod, [scene, "-O", "--ckpt_dir", root, "--workspace", out] + edit,
+            out, dev, smi, want)
     if not results["combined"]["w"]["PSNR"] >= 20.0:
         raise AssertionError(f"composed PSNR_w {results['combined']['w']['PSNR']} dB, want >= 20")
-    out = os.path.join(work, "editable_out")
-    if not (os.path.exists(os.path.join(out, "composite.mp4"))
-            or os.path.exists(os.path.join(out, f"composite_{VAL_VIEWS - 1:04d}.png"))):
-        raise AssertionError("editable wrote neither composite.mp4 nor its PNG frames")
-    return runs, root, scene
+    return runs, results, root, scene
 
 
 def _compare(label: str, gpu, cpu):
@@ -1345,7 +1401,7 @@ def _compare(label: str, gpu, cpu):
 
 
 def phase_composition_reference(root: str, scene: str, dev):
-    """On the trained objects, in fp32: one 96x96 val view composed on the
+    """On the trained objects, in fp32: one 64x64 val view composed on the
     card (kernel) and on the CPU (plain versions) from the same checkpoints,
     plainly, with the translated edit and with a rotate_z 90 edit (uniform
     path, 512 steps); then, on the card, [A, A] against [A] (bit for bit)
@@ -1364,7 +1420,8 @@ def phase_composition_reference(root: str, scene: str, dev):
 
     opt = parse_options([scene, "-O", "--ckpt_dir", root])
     pose = NeRFDataset(opt.dataset_options(), split="val", device="cpu").poses[0]
-    intr = np.array([115.2, 115.2, 48, 48], np.float32)
+    size = 64  # the CPU renders the rotated edit through 512 uniform steps
+    intr = np.array([1.2 * size, 1.2 * size, size / 2, size / 2], np.float32)
     loaded = {where: load_composition(opt, device=where) for where in (dev, "cpu")}
     objs, cfg = loaded[dev][:2]
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)  # no bf16 flips
@@ -1386,12 +1443,12 @@ def phase_composition_reference(root: str, scene: str, dev):
             rots = None if degs is None else rotation_matrices(degs, device=where)
             composite_rays_fused.launches = 0
             t0 = time.time()
-            renders[where] = compose_image(params, cfg32, pose, intr, 96, 96, feats, offs, rots, bg_color=0.0,
+            renders[where] = compose_image(params, cfg32, pose, intr, size, size, feats, offs, rots, bg_color=0.0,
                                            max_ray_batch=batch, **kw)
             seconds = time.time() - t0
-            if torch.device(where).type == "cuda" and composite_rays_fused.launches != math.ceil(96 * 96 / CHUNK):
+            if torch.device(where).type == "cuda" and composite_rays_fused.launches != math.ceil(size * size / CHUNK):
                 raise AssertionError(f"{label}: {composite_rays_fused.launches} kernel launches on the card")
-        print(f"[reference] {label}: 96x96 fp32 view, K=2, the CPU's render took {seconds:.1f} s; object share "
+        print(f"[reference] {label}: {size}x{size} fp32 view, K=2, the CPU's render took {seconds:.1f} s; object share "
               f"{float((renders['cpu'][0][..., 3] > 0.5).float().mean()):.3f}")
         _compare(f"{label} (rgba, depth)", renders[dev], renders["cpu"])
 
@@ -1430,7 +1487,7 @@ def phase_compose_profile(loaded, march, pose):
 
     from focnerf_tpu_torch.models import nerf
     from focnerf_tpu_torch.render import compose
-    from focnerf_tpu_torch.utils.measure import device_events
+    from focnerf_tpu_torch.utils.measure import busy_ms, device_events
 
     cfg, params, feats, occ = loaded
     intr = np.array([1.2 * RES, 1.2 * RES, RES / 2, RES / 2], np.float32)
@@ -1474,7 +1531,7 @@ def phase_compose_profile(loaded, march, pose):
         view()
         wall = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
-    busy = sum(ms for _, ms in events)
+    busy = busy_ms(prof)
     by_name = collections.Counter()
     for name, ms in events:
         by_name[name] += ms
@@ -1485,6 +1542,298 @@ def phase_compose_profile(loaded, march, pose):
     ms = sum(v for k, v in by_name.items() if "composite_forward_kernel" in k)
     print(f"[compose-profile]   kernel composite_forward_kernel: {ms:.3f} ms ({ms / max(busy, 1e-9):.2%} of "
           "device time)")
+
+
+def blob_volume(R: int, sh_deg: int = 0, seed: int = 0, device="cpu"):
+    """An analytic two-blob volume [R, R, R, 3 * max(sh_deg, 1)^2 + 1] in
+    [-1, 1]^3: hard-edged spheres of sigma 40 and 25 in a payload drawn from
+    ``seed`` (rgb in [0, 1], or SH coefficients in [-0.5, 0.5])."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    c = (torch.arange(R, dtype=torch.float32) + 0.5) / R * 2 - 1
+    X, Y, Z = torch.meshgrid(c, c, c, indexing="ij")
+    sigma = (torch.where((X - 0.2) ** 2 + Y**2 + Z**2 < 0.3**2, 40.0, 0.0)
+             + torch.where((X + 0.3) ** 2 + (Y - 0.2) ** 2 + (Z + 0.1) ** 2 < 0.25**2, 25.0, 0.0))
+    payload = torch.rand((R, R, R, 3 * max(sh_deg, 1) ** 2), generator=g) - (0.5 if sh_deg else 0.0)
+    return torch.cat([payload, sigma[..., None]], -1).to(device)
+
+
+def axis_poses(distance: float = 2.5):
+    """Six c2w poses, one per principal axis and sign, looking at the origin
+    from slightly off-axis eyes (+z forward, +y down)."""
+    import numpy as np
+
+    poses = []
+    for ax in range(3):
+        for sign in (1.0, -1.0):
+            eye = np.array([0.3, -0.2, 0.1])
+            eye[ax] = distance * sign
+            fwd = -eye / np.linalg.norm(eye)
+            right = np.cross(fwd, (1.0, 0.0, 0.0) if ax == 1 else (0.0, 1.0, 0.0))
+            right /= np.linalg.norm(right)
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], -1)
+            pose[:3, 3] = eye
+            poses.append(pose)
+    return poses
+
+
+def _psnr(a, b) -> float:
+    return float(-10.0 * math.log10(max(float(((a.double() - b.double()) ** 2).mean()), 1e-20)))
+
+
+def phase_baked_reference(dev):
+    """The shear-warp renderer on the card against the CPU, small: an
+    analytic two-blob volume at 64^3, 96x96 views from six poses (every
+    axis and flip), dense with sh_deg 0 and 2 and uint8-resident. The core
+    in fp32 on the card must pass the render gates against the CPU's fp32
+    render; ``render_baked`` on the card (bf16 resampling) must be within
+    BAKED_BF16_PSNR dB of it. Then the edits on the card against the CPU:
+    shift, rotation by 90 degrees and merge to the bit, rotation by 30
+    degrees within 1e-5 relative."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.render import baked as tb
+
+    R, size = 64, 96
+    intr = np.array([115.2, 115.2, 48.0, 48.0], np.float32)
+    worst = float("inf")
+    for label, sh_deg, resident in (("dense sh0", 0, False), ("dense sh2", 2, False), ("uint8-resident sh0", 0, True)):
+        cpu = tb.BakedVolume(rgba=blob_volume(R, sh_deg, seed=sh_deg), bound=1.0, sh_deg=sh_deg)
+        if resident:
+            cpu = tb.quantize_volume(cpu)
+        card = type(cpu)(*(t.to(dev) if torch.is_tensor(t) else t for t in cpu))
+        core32, bf16 = [], []
+        for pose in axis_poses():
+            want = tb.render_baked(cpu, pose, intr, size, size)
+            axis, flip = tb.view_axis(pose, 1.0)
+            rgba = card.q if resident else card.rgba
+            got32 = tb._render_core(
+                rgba, 1.0, torch.from_numpy(pose).to(dev), torch.from_numpy(intr).to(dev), axis=axis, flip=flip,
+                H=size, W=size, ri=2 * R, bg_color=1.0, density_scale=1.0, sh_deg=sh_deg,
+                quant=(card.scales, card.los) if resident else None, compute_dtype=torch.float32)
+            core32.append((got32, want))
+            got = tb.render_baked(card, pose, intr, size, size)
+            bf16.append(_psnr(got[0].cpu(), want[0]))
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"{label}: non-finite bf16 render on the card")
+        _compare(f"shear-warp core in fp32, {label}, 6 poses (image, depth, alpha)",
+                 tuple(torch.cat([g[i].reshape(-1) for g, _ in core32]) for i in range(3)),
+                 tuple(torch.cat([w[i].reshape(-1) for _, w in core32]) for i in range(3)))
+        worst = min(worst, min(bf16))
+        print(f"[baked-reference] render_baked on the card (bf16 resampling) against the CPU (fp32), {label}: "
+              f"image PSNR per pose {', '.join(f'{p:.2f}' for p in bf16)} dB (limit >= {BAKED_BF16_PSNR})")
+    if not worst >= BAKED_BF16_PSNR:
+        raise AssertionError(f"bf16 shear-warp on the card {worst:.2f} dB from the CPU's fp32, want >= "
+                             f"{BAKED_BF16_PSNR}")
+
+    rgba = blob_volume(R, seed=5)
+    rgba[0, :, :, -1] = 30.0  # mass on a face: rotated corners leave the cube
+    cpu = tb.BakedVolume(rgba=rgba, bound=1.0)
+    card = tb.BakedVolume(rgba=rgba.to(dev), bound=1.0)
+    other = blob_volume(R, seed=6)
+    other[..., -1] = torch.where(torch.arange(R)[:, None, None] % 2 == 0, rgba[..., -1], other[..., -1])  # ties
+    edits = {
+        "shift_volume (0.5, -1.5, 2.5 voxels)": (lambda v: tb.shift_volume(v, (1 / 64, -3 / 64, 5 / 64)), True),
+        "rotate_volume 90 about y": (lambda v: tb.rotate_volume(v, 1, 90.0), True),
+        "merge_volumes with ties": (lambda v: tb.merge_volumes([v, tb.BakedVolume(other.to(v.rgba.device), 1.0)]),
+                                    True),
+        "rotate_volume 30 about z": (lambda v: tb.rotate_volume(v, 2, 30.0), False),
+        "rotate_volume 30 about x, centre (0.1, 0, -0.2)": (lambda v: tb.rotate_volume(v, 0, 30.0, (0.1, 0.0, -0.2)),
+                                                            False),
+    }
+    for label, (fn, exact) in edits.items():
+        got, want = fn(card).rgba.cpu(), fn(cpu).rgba
+        err = float((got - want).abs().max())
+        ok = torch.equal(got, want) if exact else torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+        print(f"[baked-reference] {label} on the card against the CPU at {R}^3: max_abs_err {err:.3g} "
+              f"(limit {'0, to the bit' if exact else '1e-5 + 1e-5 relative'})")
+        if not ok:
+            raise AssertionError(f"{label}: the card and the CPU disagree")
+
+
+def read_baked_log(path: str):
+    """The ``[baked]`` lines of a composition's log.txt."""
+    with open(path) as f:
+        return [line.strip() for line in f if line.startswith("[baked]")]
+
+
+def phase_baked_compose(work: str, root: str, scene: str, dev, smi: str, per_sample: dict):
+    """``combined --baked`` over the val views of both spheres (each object
+    baked at 256^3, its gate report written, merged, every view rendered by
+    shear-warp), then ``editable --baked --bake_quantize --edit_object
+    SECOND --offset_x 0.3 --rotate_z 90`` (uint8-resident), through the same
+    runner as phase 7. Each object's bake_quality.json must be written, the
+    composite forward (the gate's exact probes) must launch, no CUDA tensor
+    may reach the plain compositor, and PSNR_w must be >= 20 dB. Returns
+    each run's launches and the two merged volumes (dense, resident)."""
+    import json as _json
+
+    from focnerf_tpu_torch.apps import combined, editable
+
+    volumes = []
+    bake = combined.bake_composition
+
+    def keep(*args, **kwargs):  # the merged volume, for the profile phase
+        volumes.append(bake(*args, **kwargs))
+        return volumes[-1]
+
+    runs = {}
+    combined.bake_composition = keep
+    try:
+        for name, mod, edit in (
+                ("combined", combined, ["--baked"]),
+                ("editable", editable, ["--baked", "--bake_quantize", "--edit_object", SECOND, "--offset_x", "0.3",
+                                        "--rotate_z", "90"])):
+            out = os.path.join(work, f"baked_{name}_out")
+            gates = [os.path.join(root, f"ws_{obj}", "bake_quality.json") for obj in (OBJECT, SECOND)]
+            for path in gates:
+                if os.path.exists(path):
+                    os.remove(path)
+            runs[name], views_ms, summary, peak = run_composition_cli(
+                "baked-compose", " ".join([name] + edit), mod,
+                [scene, "-O", "--ckpt_dir", root, "--workspace", out] + edit, out, dev, smi)
+            for line in read_baked_log(os.path.join(out, "log.txt")):
+                print(f"[baked] {name}: {line[len('[baked] '):]}")
+            frame_ms = sum(views_ms[1:]) / max(len(views_ms) - 1, 1)
+            print(f"[baked] {name}: {frame_ms:.2f} ms per {RES}x{RES} frame after the first view (host clock, the "
+                  f"PNG and metric work of a view excluded); peak memory {peak:.3f} GiB; composite forward "
+                  f"launches {runs[name]['composite_rays_fused']} ({smi})")
+            ref = per_sample["combined"]
+            print(f"[baked] {name}: PSNR_w {summary['w']['PSNR']:.3f} / PSNR_b {summary['b']['PSNR']:.3f} dB; the "
+                  f"per-sample combined of phase 7 on the same views {ref['w']['PSNR']:.3f} / "
+                  f"{ref['b']['PSNR']:.3f} dB")
+            for path, obj in zip(gates, (OBJECT, SECOND)):
+                if not os.path.exists(path):
+                    raise AssertionError(f"{name}: no {path}")
+                with open(path) as f:
+                    rep = _json.load(f)
+                print(f"[baked] {name}: {obj} bake gate psnr_baked_vs_exact_mean {rep['psnr_baked_vs_exact_mean']}"
+                      f" dB, min {rep['psnr_baked_vs_exact_min']} dB over {rep['views']} probe views of "
+                      f"{rep['probe_hw'][0]}x{rep['probe_hw'][1]}")
+            if name == "combined" and not summary["w"]["PSNR"] >= 20.0:
+                raise AssertionError(f"baked composition PSNR_w {summary['w']['PSNR']} dB, want >= 20")
+    finally:
+        combined.bake_composition = bake
+    return runs, volumes
+
+
+def phase_baked_profile(volumes, pose, dev, smi: str):
+    """Where one 800x800 shear-warp frame's time goes at 256^3, after a
+    warm-up frame: dense (the merged composition), uint8-resident (the
+    edited one) and a dense sh_deg 2 volume (the analytic blobs). CUDA events
+    around each stage: the relayout (permute, flip, cast), the dequant
+    (resident), the hat matrices, the two resample products, the fold
+    arithmetic, the SH contraction and the final warp; then 5 frames under
+    torch.profiler for the device's busy share and top kernels."""
+    import collections
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from focnerf_tpu_torch.render import baked as tb
+    from focnerf_tpu_torch.utils.measure import busy_ms, device_events
+
+    intr = np.array([1.2 * RES, 1.2 * RES, RES / 2, RES / 2], np.float32)
+    R = volumes[0].rgba.shape[0]
+    sh2 = tb.BakedVolume(rgba=blob_volume(R, 2, seed=9, device=dev), bound=volumes[0].bound, sh_deg=2)
+    stages = ("_relayout", "_dequant", "_hat_matrices", "_resample", "_accumulate", "sh_contract_plane", "_warp")
+    for label, vol in (("dense sh0", volumes[0]), ("uint8-resident sh0", volumes[1]), ("dense sh2", sh2)):
+        def frame():
+            out = tb.render_baked(vol, pose, intr, RES, RES, bg_color=0.0)
+            torch.cuda.synchronize()
+            return out
+
+        frame()  # warm-up
+        spans = collections.defaultdict(list)
+        saved = {n: getattr(tb, n) for n in stages}
+
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                spans[name].append((start, end))
+                return out
+            return run
+
+        for n, fn in saved.items():
+            setattr(tb, n, timed(n, fn))
+        try:
+            t0 = time.perf_counter()
+            frame()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            for n, fn in saved.items():
+                setattr(tb, n, fn)
+        stage = {n: sum(s.elapsed_time(e) for s, e in spans[n]) for n in stages if spans[n]}
+        rest = wall - sum(stage.values())
+        data = vol.q if isinstance(vol, tb.QuantizedVolume) else vol.rgba
+        print(f"[baked-profile] {label}, volume {tuple(data.shape)} {data.dtype}, one {RES}x{RES} frame (ri "
+              f"{2 * data.shape[0]}), wall {wall:.2f} ms; stage event spans (ms, share of "
+              "wall): " + ", ".join(f"{n.strip('_')} {ms:.3f} ({ms / wall:.1%}, {len(spans[n])} calls)"
+                                    for n, ms in stage.items())
+              + f", outside the stages {rest:.3f} ({rest / wall:.1%}) ({smi})")
+        n_frames = 5
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_frames):
+                frame()
+            wall = (time.perf_counter() - t0) * 1e3 / n_frames
+        busy = busy_ms(prof) / n_frames
+        by_name = collections.Counter()
+        for name, ms in device_events(prof):
+            by_name[name] += ms / n_frames
+        print(f"[baked-profile] {label} under torch.profiler: wall {wall:.2f} ms/frame, device busy {busy:.2f} "
+              f"ms/frame ({busy / wall:.1%}; idle {1 - busy / wall:.1%}; the union of the device events' intervals)")
+        for name, ms in by_name.most_common(5):
+            print(f"[baked-profile]   {ms:8.3f} ms/frame {ms / busy:6.1%}  {name[:110]}")
+
+
+def phase_procedural(work: str, dev, smi: str):
+    """``make_hard_scene`` on the card at gt_res 256 and 800x800 with 4
+    train, 2 val and 2 test views: ms per GT frame, and a val PNG must
+    decode to within 1/255 of the frame rendered again from its pose."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.core.camera import nerf_matrix_to_ngp
+    from focnerf_tpu_torch.data.png import read_image
+    from focnerf_tpu_torch.data.procedural import hard_volume, make_hard_scene
+    from focnerf_tpu_torch.render.baked import BakedVolume, render_baked
+
+    root = os.path.join(work, "hard_scene")
+    t0 = time.time()
+    make_hard_scene(root, n_train=4, n_val=2, n_test=2, H=RES, W=RES, gt_res=GT_RES, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    with open(os.path.join(root, "transforms_val.json")) as f:
+        frame = _json.load(f)["frames"][0]
+    pose = nerf_matrix_to_ngp(np.asarray(frame["transform_matrix"], np.float32), scale=1.0)
+    vol = BakedVolume(rgba=torch.from_numpy(hard_volume(GT_RES)).to(dev), bound=1.0)
+    intr = (1.2 * RES, 1.2 * RES, RES / 2.0, RES / 2.0)
+    render_baked(vol, pose, intr, RES, RES)  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        img, _, alpha = render_baked(vol, pose, intr, RES, RES, bg_color=1.0)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t1) * 1e3 / 5
+    rgba = torch.cat([img, alpha[..., None]], -1).clamp(0, 1).cpu().numpy()
+    png = read_image(os.path.join(root, frame["file_path"] + ".png")).astype(np.float32) / 255.0
+    err = float(np.abs(png - rgba).max())
+    print(f"[procedural] make_hard_scene at gt_res {GT_RES}, 8 views of {RES}x{RES}: {wall:.2f} s with the volume, the "
+          f"PNG writes and the JSON; {frame_ms:.2f} ms per GT frame (render_baked, synchronized, mean of 5); val "
+          f"PNG against the re-rendered frame: max_abs_err {err:.5f} (limit 1/255 = {1 / 255:.5f}); object share "
+          f"{float((alpha > 0.5).float().mean()):.3f} ({smi})")
+    if not (png.shape == (RES, RES, 4) and err <= 1 / 255 + 1e-6):
+        raise AssertionError(f"procedural val PNG {png.shape} off the rendered frame by {err}")
 
 
 def main() -> int:
@@ -1516,12 +1865,19 @@ def main() -> int:
     phase_iterative_reference(trainer)
     phase_train_reference(trainer)
     phase_second_object(work, dev)
-    composed, root, scene = phase_composition(work, dev, smi)
-    phase_compose_profile(*phase_composition_reference(root, scene, dev))
+    composed, per_sample, root, scene = phase_composition(work, dev, smi)
+    loaded, march, pose = phase_composition_reference(root, scene, dev)
+    phase_compose_profile(loaded, march, pose)
+    phase_baked_reference(dev)
+    baked_runs, volumes = phase_baked_compose(work, root, scene, dev, smi, per_sample)
+    phase_baked_profile(volumes, pose, dev, smi)
+    phase_procedural(work, dev, smi)
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
     line = [{**k, "launches": launches[k["name"]], "launches_compose": composed["combined"][k["name"]],
-             "launches_edit": composed["editable"][k["name"]]} for k in kernels]
+             "launches_edit": composed["editable"][k["name"]],
+             "launches_baked_compose": baked_runs["combined"][k["name"]],
+             "launches_baked_edit": baked_runs["editable"][k["name"]]} for k in kernels]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,15 @@ per-view time and PSNR lines and a PSNR/SSIM/LPIPS summary block in
 ``<workspace>/log.txt``, and with ``write_video`` ``composite.mp4`` (or its
 PNG frames where no mp4 writer exists).
 
-The baked path (``--baked``: bake, shear-warp, quantized volumes,
-focnerf_tpu/render/baked.py) is not ported yet: ``--baked``, and a
-voxel-trained object workspace, are refused.
+With ``--baked`` (JAX evaluate_composition :203-288) each checkpointed
+object is baked once at ``--bake_res`` (``--bake_sh``), its bake-vs-exact
+PSNR written to ``<ckpt_dir>/<ws>_<obj>/bake_quality.json`` (``--bake_gate``,
+on by default), rotated and shifted by its edit, merged by max density and,
+with ``--bake_quantize``, served uint8-resident; every view then renders by
+shear-warp (render/baked.py). A voxel-trained workspace
+(``<ws>_<obj>/baked_<res>_sh<deg>.npz``, as JAX main_voxel writes it) joins
+the merge as its volume; it has no network, so it composes only with
+``--baked``.
 
 Usage:
   python -m focnerf_tpu_torch.apps.combined <scene> --ckpt_dir <dir with ws_<obj>> \\
@@ -102,7 +108,7 @@ def load_composition(opt: Options, feats_mode: str = "avg", test_poses=None, dev
     prefix = _ws_prefix(opt)
     cfg = None
     params_list, occ_list = [], []
-    # voxel-trained objects carry no network: only --baked could compose them
+    # voxel-trained objects carry no network: they compose only with --baked
     vol_paths: Dict[str, str] = {}
     for obj in objs:
         ws_dir = os.path.join(root, f"{prefix}_{obj}")
@@ -165,13 +171,98 @@ def composition_feats(
     return torch.from_numpy(feats.astype(np.float32)).to(device)
 
 
-def _refuse_baked(opt: Options):
-    if opt.baked:
-        raise SystemExit(
-            "--baked: the baked composition path (focnerf_tpu/render/baked.py: bake, "
-            "shear-warp, quantized volumes) is not ported to focnerf_tpu_torch yet "
-            "(ROADMAP.md section 1, item 12); compose without --baked"
-        )
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bake_composition(opt: Options, objs, cfg, stacked, obj_feats, stacked_occ, vol_paths, dataset,
+                     offsets, rotations, log):
+    """The composed scene as one baked volume (JAX evaluate_composition
+    :203-288): voxel-trained objects load their volume (its sigma divided by
+    ``cfg.density_scale``, which the render multiplies back), checkpointed
+    ones bake (and pass the gate); each is rotated, then shifted by -offset;
+    the volumes merge by max density and, with ``--bake_quantize``, quantize
+    to a uint8-resident volume. ``log`` receives one line per stage."""
+    from focnerf_tpu_torch.render.bake_gate import bake_quality_report
+    from focnerf_tpu_torch.render.baked import (
+        BakedVolume,
+        bake_field,
+        load_volume,
+        merge_volumes,
+        quantize_volume,
+        rotate_volume,
+        shift_volume,
+    )
+
+    device = dataset.device
+    # pose-mode features ([T, K, F]) bake with their mean over the views
+    avg_feats = obj_feats if (obj_feats is None or obj_feats.dim() == 2) else obj_feats.mean(0)
+    t_all = time.time()
+    vols = []
+    ki = 0  # position in the checkpointed objects' stack
+    for k, obj in enumerate(objs):
+        t0 = time.time()
+        if obj in vol_paths:
+            vol = load_volume(vol_paths[obj], device=device)
+            if vol.sh_deg != opt.bake_sh or vol.rgba.shape[0] != opt.bake_res:
+                raise SystemExit(
+                    f"{vol_paths[obj]} is {vol.rgba.shape[0]}^3/sh{vol.sh_deg} but the composition "
+                    f"is {opt.bake_res}^3/sh{opt.bake_sh} — retrain or match --bake_res/--bake_sh"
+                )
+            if cfg.density_scale != 1.0:
+                # voxel fields train at density_scale 1; the composed render
+                # multiplies by cfg.density_scale
+                rgba = vol.rgba.clone()
+                rgba[..., -1] /= cfg.density_scale
+                vol = BakedVolume(rgba=rgba, bound=vol.bound, sh_deg=vol.sh_deg)
+            what = "loaded"
+        else:
+            pk = stacked[ki]
+            feats_k = None if avg_feats is None else avg_feats[k]
+            occ_k = None if stacked_occ is None else stacked_occ[ki]
+            vol = bake_field(pk, cfg, resolution=opt.bake_res, obj_feat=feats_k, occ_bits=occ_k,
+                             sh_degree=opt.bake_sh)
+            _sync(device)
+            what = f"baked in {time.time() - t0:.2f} s"
+            if opt.bake_gate:
+                t1 = time.time()
+                gate_path = os.path.join(opt.ckpt_dir or ".", f"{_ws_prefix(opt)}_{obj}",
+                                         "bake_quality.json")
+                rep = bake_quality_report(
+                    pk, cfg, vol, dataset.poses, dataset.intrinsics, dataset.H, dataset.W,
+                    obj_feat=feats_k, occ_bits=occ_k, num_steps=min(opt.num_steps, 256),
+                    out_path=gate_path,
+                )
+                print(f"[bake-gate] {obj}: baked-vs-exact {rep['psnr_baked_vs_exact_mean']} dB mean / "
+                      f"{rep['psnr_baked_vs_exact_min']} dB min -> {gate_path}")
+                what += f", gate {time.time() - t1:.2f} s"
+            ki += 1
+        if rotations is not None and np.any(np.asarray(rotations[k])):
+            # about the world origin, as JAX; then the translation
+            for ax_i, dg in enumerate(np.asarray(rotations[k])):
+                if float(dg):
+                    vol = rotate_volume(vol, ax_i, float(dg))
+        if offsets is not None:
+            # compose offsets query the field at x + off: the object sits at -off
+            vol = shift_volume(vol, -np.asarray(offsets[k]))
+        _sync(device)
+        log(f"[baked] {obj}: {what}; {time.time() - t0:.2f} s with its edit")
+        vols.append(vol)
+    t0 = time.time()
+    merged = merge_volumes(vols)
+    _sync(device)
+    t_merge = time.time() - t0
+    if opt.bake_quantize:
+        # serve uint8-resident: dequantized inside the compositing fold
+        t0 = time.time()
+        merged = quantize_volume(merged)
+        _sync(device)
+        log(f"[baked] merge {t_merge:.2f} s, quantization {time.time() - t0:.2f} s")
+    else:
+        log(f"[baked] merge {t_merge:.2f} s")
+    log(f"[baked] {len(objs)} objects baked+merged at {opt.bake_res}^3 in {time.time() - t_all:.1f}s")
+    return merged
 
 
 def _png(path: str, img) -> None:
@@ -194,30 +285,46 @@ def evaluate_composition(
     )
     from focnerf_tpu_torch.train.meters import LPIPSMeter, PSNRMeter, SSIMMeter
 
-    _refuse_baked(opt)
+    from focnerf_tpu_torch.render.baked import render_baked
+
     device = resolve_device(device)
     dataset = NeRFDataset(opt.dataset_options(), split="val", device=device)
     objs, cfg, stacked, obj_feats, stacked_occ, vol_paths = load_composition(
         opt, feats_mode=feats_mode, test_poses=dataset.poses, device=device
     )
-    if vol_paths:
+    if vol_paths and not opt.baked:
         raise SystemExit(
             f"voxel-trained objects {sorted(vol_paths)} have no network to "
             "march per sample — compose them with --baked"
         )
+    ws = opt.workspace
+    for sub in ("rgbs_w", "depth_w", "rgbs_b", "depth_b", "ground_truth_w", "ground_truth_b"):
+        os.makedirs(os.path.join(ws, sub), exist_ok=True)
+    log_path = os.path.join(ws, "log.txt")
+
+    def log(line: str) -> None:
+        print(line)
+        with open(log_path, "a") as f:
+            f.write(line + "\n")
+
+    baked_vol = None
+    if opt.baked:
+        # bake once, merge by max density, render every view by shear-warp
+        baked_vol = bake_composition(opt, objs, cfg, stacked, obj_feats, stacked_occ, vol_paths, dataset,
+                                     offsets, rotations, log)
 
     rot_mats = None
     if rotations is not None and np.any(np.asarray(rotations)):
         rot_mats = rotation_matrices(rotations, device=device)
-    # march on the union of the objects' occupancies
+    # march on the union of the objects' occupancies (per-sample path only)
     occ_kwargs = {}
-    if rot_mats is not None and stacked_occ is not None:
+    if rot_mats is not None and stacked_occ is not None and baked_vol is None:
         print(
             "[combined] rotation edit active: the union occupancy bitfield "
             "ignores rotation — using uniform sampling for this run"
         )
         stacked_occ = None
-    if stacked_occ is not None:
+    if stacked_occ is not None and baked_vol is None:
         occ_kwargs = dict(
             occ_bits=union_occupancy_bits(stacked_occ, offsets, cfg.bound),
             dt_gamma=opt.dt_gamma,
@@ -225,10 +332,6 @@ def evaluate_composition(
             slab=max(opt.train_slab, 64),
         )
 
-    ws = opt.workspace
-    for sub in ("rgbs_w", "depth_w", "rgbs_b", "depth_b", "ground_truth_w", "ground_truth_b"):
-        os.makedirs(os.path.join(ws, sub), exist_ok=True)
-    log_path = os.path.join(ws, "log.txt")
     aabb = None if opt.bound_inf is None else torch.tensor(opt.bound_inf, dtype=torch.float32)
 
     meters = {
@@ -241,12 +344,19 @@ def evaluate_composition(
         # pose mode synthesizes distinct features per test view ([T, K, F])
         feats_v = obj_feats if (obj_feats is None or obj_feats.dim() == 2) else obj_feats[v]
         t0 = time.time()
-        rgba, depth = compose_image(
-            stacked, cfg, view["pose"], dataset.intrinsics, dataset.H, dataset.W,
-            feats_v, offsets, rot_mats, num_steps=opt.num_steps,
-            max_ray_batch=opt.max_ray_batch, bg_color=0.0, aabb=aabb,
-            min_near=opt.min_near, **occ_kwargs,
-        )
+        if baked_vol is not None:
+            img_p, depth, alpha_b = render_baked(
+                baked_vol, view["pose"], dataset.intrinsics, dataset.H, dataset.W,
+                bg_color=0.0, density_scale=cfg.density_scale,
+            )
+            rgba = torch.cat([img_p, alpha_b[..., None]], -1)
+        else:
+            rgba, depth = compose_image(
+                stacked, cfg, view["pose"], dataset.intrinsics, dataset.H, dataset.W,
+                feats_v, offsets, rot_mats, num_steps=opt.num_steps,
+                max_ray_batch=opt.max_ray_batch, bg_color=0.0, aabb=aabb,
+                min_near=opt.min_near, **occ_kwargs,
+            )
         rgb, alpha = rgba[..., :3], rgba[..., 3:]
         img_w = torch.clamp(rgb + (1 - alpha) * 1.0, 0, 1)
         img_b = torch.clamp(rgb, 0, 1)
@@ -277,9 +387,7 @@ def evaluate_composition(
                 f" | PSNR_w {meters['w'][0].vals[-1]:.2f}"
                 f" | PSNR_b {meters['b'][0].vals[-1]:.2f}"
             )
-        print(line)
-        with open(log_path, "a") as f:
-            f.write(line + "\n")
+        log(line)
 
     summary = ["==== composition summary ====", f"objects: {objs}"]
     for bg in ("w", "b"):

@@ -6,8 +6,11 @@ composition flow of ``apps/combined.py`` plus
   - ``--edit_object`` with ``--offset_x/y/z`` (:76-79): the edited object's
     ray origins are shifted by the offset (modify_rays_for_object
     :443-471), a rigid translation inside the composed scene, and with
-    ``--rotate_x/y/z`` a rotation in degrees about its own centre (then the
-    union occupancy bitfield no longer applies, and sampling is uniform);
+    ``--rotate_x/y/z`` a rotation in degrees (x, then y, then z) about the
+    origin of its field, before the translation. Per sample, a rotation
+    voids the union occupancy bitfield, so sampling is uniform; with
+    ``--baked`` the object's volume is rotated and shifted before the merge
+    (render/baked.py), and the frames stay on the shear-warp path;
   - pose-distance-weighted features per view (calculate_feats2_inference,
     :781) instead of the plain average;
   - ``composite.mp4`` of the composited frames (:405-418), or its PNG frames
@@ -18,7 +21,7 @@ any class works.
 
 Usage:
   python -m focnerf_tpu_torch.apps.editable <scene> --ckpt_dir <dir> \\
-      --edit_object cup --offset_x 0.2 --workspace edit_ws
+      --edit_object cup --offset_x 0.2 --workspace edit_ws [--baked --rotate_z 90]
 """
 
 from __future__ import annotations

@@ -85,7 +85,8 @@ def train_one_object(opt: Options, obj: str, sidecar_train, sidecar_val, device)
         color_space=opt.color_space, tv_weight=opt.tv_weight, use_checkpoint=opt.ckpt,
         seed=opt.seed, rand_pose=opt.rand_pose, eval_interval=opt.eval_interval,
         ckpt_interval=opt.ckpt_interval, eval_save_images=opt.eval_save_images,
-        eval_renderer=opt.eval_renderer, device=device,
+        eval_renderer=opt.eval_renderer, error_map=opt.error_map, patch_size=opt.patch_size,
+        device=device,
     )
     trainer.check_eval_renderer()  # refuse before training, not after it
     steps_per_epoch = max(train_ds.n_views, 1)
@@ -144,12 +145,23 @@ def test_mode(opt: Options, sidecar_test, device):
             f.write(f"{obj}: {time.time()-t0:.2f}s for {test_ds.n_views} views\n")
 
 
+def warn_ignored(opt: Options) -> None:
+    """One line for each option the port accepts and ignores, and why."""
+    if opt.grid_int8:
+        print("[main_nerf] --grid_int8 is ignored: it quantizes the JAX package's TPU one-hot "
+              "table backward; the port's scatter is exact, as JAX's is off the TPU")
+    if not opt.preload:
+        print("[main_nerf] --no-preload is ignored: the port preloads every split to the device; "
+              "JAX's host pipeline samples pixels uniformly, as the preloaded batches do")
+
+
 def main(argv=None, device=None):
     """CLI entry; ``device`` None means ``cuda`` (raises without CUDA).
     Returns the trained objects' ``Trainer``s (none in ``--test`` mode)."""
     opt = parse_options(argv)
     device = resolve_device(device)
     os.makedirs(opt.workspace, exist_ok=True)
+    warn_ignored(opt)
 
     from focnerf_tpu_torch.data.yolo_sidecar import load_sidecar, preprocess_scene
 

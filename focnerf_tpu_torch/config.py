@@ -6,7 +6,8 @@ command line written for the JAX package parses here), the same ``-O`` and
 returning the port's types. Options of features the port has not ported yet
 (error-map and patch sampling, c2f, gradient-level phases, TV, rand-pose,
 the voxel families, D-NeRF) are parsed and carried; the port's trainer
-refuses those it cannot honour.
+refuses those it cannot honour, and ``main_nerf`` says so for the two it
+ignores (``--grid_int8``, ``--no-preload``).
 """
 
 from __future__ import annotations
@@ -167,6 +168,8 @@ class Options:
             num_rays=self.num_rays,
             preload_dtype="float16" if self.fp16 else "float32",
             edit_x=self.edit_x,
+            error_map=self.error_map,
+            patch_size=self.patch_size,
         )
 
 

@@ -36,6 +36,9 @@ class DatasetOptions:
     num_rays: int = 4096
     preload_dtype: str = "float32"  # or "float16" (-O)
     edit_x: float = 0.0  # camera x-shift for editing previews
+    # carried for the trainer, which refuses both (not ported yet)
+    error_map: bool = False
+    patch_size: int = 1
 
 
 def _load_image(path: str) -> np.ndarray:

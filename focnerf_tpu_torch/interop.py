@@ -10,6 +10,8 @@
   - ``train_state_from_jax``: a JAX ``TrainState`` (params, the optax Adam
     moments ``mu``/``nu`` and ``count``, EMA params, ``ema_count``, step)
     -> the port's ``TrainState``, so a JAX run resumes in the port;
+  - ``baked_volume_from_jax``: a JAX ``BakedVolume`` or ``QuantizedVolume``
+    (render/baked.py, numpy-convertible fields) -> the port's;
   - ``config_to_dict``/``config_from_dict``: ``NeRFConfig`` <-> the
     ``model_config.json`` dict that focnerf_tpu/train/checkpoints.py:29-63
     writes.
@@ -110,3 +112,15 @@ def train_state_from_jax(
         "optimizer": opt,
     })
     return state
+
+
+def baked_volume_from_jax(vol, device="cpu"):
+    """A JAX ``BakedVolume`` or ``QuantizedVolume`` -> the port's on
+    ``device``, with the same values and dtypes."""
+    from focnerf_tpu_torch.render.baked import BakedVolume, QuantizedVolume
+
+    to = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+    if hasattr(vol, "q"):
+        return QuantizedVolume(q=to(vol.q), scales=to(vol.scales), los=to(vol.los),
+                               bound=float(vol.bound), sh_deg=int(vol.sh_deg))
+    return BakedVolume(rgba=to(vol.rgba), bound=float(vol.bound), sh_deg=int(vol.sh_deg))

@@ -4,7 +4,7 @@ Twin of focnerf_tpu/train/trainer.py for the ``main_nerf -O`` path: the
 constructor's checkpoint modes (:237-280), ``train`` with the occupancy
 cadence (update every ``update_extra_interval`` steps, :432-452), the
 bitfield / skip-field cache (:537-547) and the slab buckets (:454-475),
-``evaluate`` with PSNR/SSIM and the best checkpoint (:791-842), and
+``evaluate`` with PSNR/SSIM/LPIPS and the best checkpoint (:791-842), and
 ``test`` (:844-880). A view renders as ``_render_view`` (:378-418) has it:
 with the occupancy grid, the ``iter``/``iter_dev`` eval renderers go
 through render/iterative.py, everything else through the oneshot
@@ -12,8 +12,8 @@ through render/iterative.py, everything else through the oneshot
 
 Every draw comes from one ``torch.Generator`` on the training device,
 seeded by ``seed``. Not ported (refused when asked for): training without
-the occupancy grid, coarse-to-fine, gradient-level phases, the TV term,
-the CLIP rand-pose branch and mesh export. ``steps_per_dispatch`` > 1 runs
+the occupancy grid, coarse-to-fine, gradient-level phases, error-map and
+patch sampling, the TV term, the CLIP rand-pose branch and mesh export. ``steps_per_dispatch`` > 1 runs
 one step per dispatch (its fused form gives the same steps).
 """
 
@@ -39,7 +39,7 @@ from focnerf_tpu_torch.ops.occupancy import (
 from focnerf_tpu_torch.render.iterative import render_image_iterative
 from focnerf_tpu_torch.render.renderer import render_image
 from focnerf_tpu_torch.train.checkpoints import BestCheckpoint, CheckpointManager, save_model_config
-from focnerf_tpu_torch.train.meters import PSNRMeter, SSIMMeter
+from focnerf_tpu_torch.train.meters import LPIPSMeter, PSNRMeter, SSIMMeter
 from focnerf_tpu_torch.train.state import TrainState
 from focnerf_tpu_torch.train.steps import step_draws, train_step_occupancy
 
@@ -85,11 +85,15 @@ class Trainer:
         use_checkpoint: str = "latest",
         seed: int = 0,
         rand_pose: int = -1,
+        error_map: bool = False,
+        patch_size: int = 1,
         device=None,
     ):
         unported = {
             "grad_level_phases > 1": grad_level_phases > 1,
             "c2f": bool(c2f),
+            "error_map (error-map pixel sampling)": error_map,
+            f"patch_size {patch_size} > 1 (patch sampling)": patch_size > 1,
             "tv_weight > 0": tv_weight > 0.0,
             "rand_pose >= 0 (CLIP guidance)": rand_pose >= 0,
         }
@@ -145,7 +149,7 @@ class Trainer:
             ema_decay=ema_decay,
         )
         self.occupancy = init_occupancy(cfg.bound, self.device) if use_occupancy else None
-        self.metrics = [PSNRMeter(), SSIMMeter()]
+        self.metrics = [PSNRMeter(), SSIMMeter(), LPIPSMeter()]
 
         ckpt_dir = os.path.join(workspace, "checkpoints")
         self.ckpt = CheckpointManager(ckpt_dir, max_keep=max_keep_ckpt)

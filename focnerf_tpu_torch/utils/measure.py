@@ -1,6 +1,8 @@
 """Measurement helpers shared by chip_smoke.py and tools/profile_serving.py.
 
   - ``device_events``: the device-side events of a torch.profiler trace;
+  - ``busy_ms``: the time the device was busy in such a trace (the union of
+    its events' intervals: overlapping events count once);
   - ``device_ms``: a function's device time per call, and its CUDA-event span;
   - ``seeded_model``: the full-width serving model from a seed, with a
     density grid equal to the field's sigma at every cell centre.
@@ -11,17 +13,37 @@ from __future__ import annotations
 import torch
 
 
+def _device(prof):
+    """Every device-side event (kernel, copy, fill) of a torch.profiler
+    trace. Host-side operator events are left out, and so are the
+    device-side spans of annotations (``record_function`` ranges such as
+    ``Optimizer.step#Adam.step``), which cover kernels already listed."""
+    return [e for e in prof.events()
+            if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)]
+
+
 def device_events(prof):
-    """(name, ms) of every device-side event (kernel, copy, fill) in a
-    torch.profiler trace. Host-side operator events are left out, and so are
-    the device-side spans of annotations (``record_function`` ranges such as
-    ``Optimizer.step#Adam.step``), which cover kernels already listed: no
-    device time is counted twice."""
-    return [
-        (e.name, e.time_range.elapsed_us() / 1e3)
-        for e in prof.events()
-        if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)
-    ]
+    """(name, ms) of every device-side event: each event's own time, for
+    sums by name. Events on different streams may overlap, so their sum can
+    exceed the time the device was busy (``busy_ms``)."""
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in _device(prof)]
+
+
+def union_ms(spans) -> float:
+    """Total length, in ms, of the union of (start_us, end_us) intervals."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi <= end:
+            continue
+        total += hi - max(lo, end)
+        end = hi
+    return total / 1e3
+
+
+def busy_ms(prof) -> float:
+    """Time the device was busy in a torch.profiler trace: the union of its
+    device events' intervals, so overlapping events count once."""
+    return union_ms((e.time_range.start, e.time_range.end) for e in _device(prof))
 
 
 def device_ms(fn, iters: int = 50):

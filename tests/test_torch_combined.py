@@ -3,6 +3,7 @@ what they load on the CPU: object features, meters, object checkpoints, and
 both CLIs end to end against the JAX package's on the same two objects (JAX
 workspaces converted by ``tools/jax_ckpt_to_torch.py``)."""
 
+import json
 import os
 import shutil
 import sys
@@ -22,6 +23,7 @@ from focnerf_tpu.apps import combined as jcombined  # noqa: E402
 from focnerf_tpu.apps import editable as jeditable  # noqa: E402
 from focnerf_tpu.config import parse_options as jparse  # noqa: E402
 from focnerf_tpu.data import feats as jfeats  # noqa: E402
+from focnerf_tpu.render import baked as jb  # noqa: E402
 from focnerf_tpu.train import checkpoints as jckpt  # noqa: E402
 from focnerf_tpu.train import meters as jmeters  # noqa: E402
 from focnerf_tpu_torch.apps import combined as tcombined  # noqa: E402
@@ -30,6 +32,7 @@ from focnerf_tpu_torch.config import parse_options as tparse  # noqa: E402
 from focnerf_tpu_torch.data import feats as tfeats  # noqa: E402
 from focnerf_tpu_torch.data.png import read_image  # noqa: E402
 from focnerf_tpu_torch.ops.composite import composite_rays_fused  # noqa: E402
+from focnerf_tpu_torch.render import baked as tb  # noqa: E402
 from focnerf_tpu_torch.train import checkpoints as tckpt  # noqa: E402
 from focnerf_tpu_torch.train import meters as tmeters  # noqa: E402
 
@@ -251,8 +254,8 @@ def test_edit_moves_the_object(composition, tmp_path):
 def test_refusals_and_device(composition, tmp_path):
     scene, _, roott = composition
     argv = [scene, "--ckpt_dir", roott, "--workspace", str(tmp_path / "out")] + MODEL
-    with pytest.raises(SystemExit, match="baked composition path"):
-        tcombined.main(argv + ["--baked"], device="cpu")
+    with pytest.raises(ValueError, match="not a multiple of the block"):  # --baked is ported
+        tcombined.main(argv + ["--baked", "--bake_res", "40", "--no-bake_gate"], device="cpu")
     with pytest.raises(SystemExit, match="not among composed objects"):
         teditable.main(argv + ["--edit_object", "nothing"], device="cpu")
     # a voxel-trained object workspace: JAX's message without --baked
@@ -263,9 +266,111 @@ def test_refusals_and_device(composition, tmp_path):
     vox_argv = [scene, "--ckpt_dir", vox_root, "--workspace", str(tmp_path / "out2")] + MODEL
     with pytest.raises(SystemExit, match=r"voxel-trained objects \['vox'\] have no network"):
         tcombined.main(vox_argv, device="cpu")
-    with pytest.raises(SystemExit, match="baked composition path"):
-        tcombined.main(vox_argv + ["--baked"], device="cpu")
+    # with --baked the volume must match the composition's resolution and degree
+    jb.save_volume(os.path.join(vox_root, "ws_vox", "baked_16_sh0.npz"),
+                   jb.BakedVolume(rgba=jnp.zeros((32, 32, 32, 4)), bound=1.0))
+    with pytest.raises(SystemExit, match=r"is 32\^3/sh0 but the composition is 16\^3/sh0"):
+        tcombined.main(vox_argv + BAKED + ["--no-bake_gate"], device="cpu")
     if not torch.cuda.is_available():
         for mod in (tcombined, teditable):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 mod.main(argv)
+
+
+BAKED = ["--baked", "--bake_res", "16"]
+
+
+def _compare_outputs(outt, outj, n_views=2, levels=1):
+    for sub in ("rgbs_w", "rgbs_b", "depth_w"):
+        for v in range(n_views):
+            got = read_image(os.path.join(outt, sub, f"{v:04d}.png")).astype(int)
+            want = read_image(os.path.join(outj, sub, f"{v:04d}.png")).astype(int)
+            assert got.shape == want.shape and got.shape[:2] == (32, 32), (sub, got.shape)
+            assert np.abs(got - want).max() <= levels, (sub, v, np.abs(got - want).max())
+    for (tw, tb_), (jw, jb_) in zip(_psnrs(os.path.join(outt, "log.txt")), _psnrs(os.path.join(outj, "log.txt"))):
+        assert abs(tw - jw) <= 0.05 and abs(tb_ - jb_) <= 0.05
+
+
+@pytest.mark.parametrize("cli,edit", [
+    ("combined", []),
+    ("combined", ["--bake_quantize", "--bake_sh", "2"]),
+    ("editable", ["--edit_object", "b", "--rotate_z", "90", "--offset_x", "0.3"]),
+])
+def test_baked_cli_matches_jax(composition, tmp_path, cli, edit):
+    """``--baked``: each object baked at 16^3 with its gate report, moved by
+    its edit, merged (quantized, resident, with --bake_quantize) and every
+    view rendered by shear-warp, as the JAX CLI does."""
+    scene, rootj, roott = composition
+    outj, outt = str(tmp_path / "outj"), str(tmp_path / "outt")
+    jmod, tmod = (jcombined, tcombined) if cli == "combined" else (jeditable, teditable)
+    composite_rays_fused.launches = 0
+    tmod.main([scene, "--ckpt_dir", roott, "--workspace", outt] + MODEL + BAKED + edit, device="cpu")
+    assert composite_rays_fused.launches == 0  # CPU run: the plain compositor only
+    gates = {o: json.load(open(os.path.join(roott, f"ws_{o}", "bake_quality.json"))) for o in OBJS}
+    jmod.main([scene, "--ckpt_dir", rootj, "--workspace", outj] + MODEL + BAKED + edit)
+    # bf16 (-O) fields on both sides: a hidden unit may round to the
+    # neighbouring bf16 value, which moves a baked voxel by ~1e-3
+    _compare_outputs(outt, outj, levels=2)
+    for o in OBJS:
+        want = json.load(open(os.path.join(rootj, f"ws_{o}", "bake_quality.json")))
+        got = gates[o]
+        assert got["views"] == want["views"] == 2 and got["bake_resolution"] == 16
+        assert got["sh_deg"] == want["sh_deg"] == (2 if "--bake_sh" in edit else 0)
+        assert abs(got["psnr_baked_vs_exact_mean"] - want["psnr_baked_vs_exact_mean"]) <= 0.1
+    with open(os.path.join(outt, "log.txt")) as f:
+        log = f.read()
+    assert "[baked] a: baked in " in log and "[baked] 2 objects baked+merged at 16^3" in log
+    assert ("quantization" in log) == ("--bake_quantize" in edit)
+    img = read_image(os.path.join(outt, "rgbs_w", "0000.png"))
+    assert 0.05 < (img < 250).mean() <= 0.95
+
+
+def test_baked_edit_moves_the_object(composition, tmp_path):
+    scene, _, roott = composition
+    common = [scene, "--ckpt_dir", roott] + MODEL + BAKED + ["--no-bake_gate"]
+    frames = [teditable.main(common + ["--workspace", str(tmp_path / name)] + edit, device="cpu")
+              for name, edit in (("plain", []), ("moved", ["--edit_object", "b", "--offset_x", "0.8"]),
+                                 ("turned", ["--edit_object", "b", "--offset_x", "0.8", "--rotate_z", "90"]))]
+    # b (radius 0.45) sits inside a (0.7) until it is moved out
+    diff = lambda x, y: np.abs(x[0].astype(int) - y[0].astype(int)).max()  # noqa: E731
+    assert diff(frames[0], frames[1]) > 20 and diff(frames[0], frames[2]) > 20
+    assert diff(frames[1], frames[2]) > 0  # the rotation turned it
+
+
+def test_voxel_workspace_composes_beside_a_checkpoint(composition, tmp_path):
+    """A workspace holding only a JAX-saved ``baked_16_sh0.npz`` (as
+    main_voxel writes it) composes with --baked beside checkpointed objects,
+    as in the JAX CLI; its density is divided by the model's density_scale."""
+    scene, rootj, roott = composition
+    roots = {}
+    for name, src in (("j", rootj), ("t", roott)):
+        root = str(tmp_path / f"root{name}")
+        shutil.copytree(src, root, symlinks=True)
+        shutil.rmtree(os.path.join(root, "ws_b"))
+        os.makedirs(os.path.join(root, "ws_vox"))
+        vol = jb.BakedVolume(rgba=jnp.asarray(np.load(VOXEL_NPZ)["rgba"]), bound=1.0)
+        jb.save_volume(os.path.join(root, "ws_vox", "baked_16_sh0.npz"), vol)
+        roots[name] = root
+    outj, outt = str(tmp_path / "outj"), str(tmp_path / "outt")
+    argv = MODEL + BAKED + ["--no-bake_gate"]
+    frames = tcombined.main([scene, "--ckpt_dir", roots["t"], "--workspace", outt] + argv, device="cpu")
+    jcombined.main([scene, "--ckpt_dir", roots["j"], "--workspace", outj] + argv)
+    _compare_outputs(outt, outj, levels=2)
+    with open(os.path.join(outt, "log.txt")) as f:
+        log = f.read()
+    assert "[baked] vox: loaded" in log and "objects: ['a', 'vox']" in log
+    # the voxel object is in the frame: the composition differs from a alone
+    alone = tcombined.main([scene, "--ckpt_dir", roots["t"], "--workspace", str(tmp_path / "alone"),
+                            "--objects_of_interest", "a"] + argv, device="cpu")
+    assert np.abs(frames[0].astype(int) - alone[0].astype(int)).max() > 20
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _voxel_npz(tmp_path_factory):
+    global VOXEL_NPZ
+    from test_torch_baked import blob_volume
+
+    VOXEL_NPZ = str(tmp_path_factory.mktemp("vox") / "vol.npz")
+    rgba = blob_volume(R=16, seed=31)
+    rgba[..., -1] *= 0.5
+    np.savez(VOXEL_NPZ, rgba=rgba)

@@ -11,8 +11,8 @@ warms up with one view, then renders one RES x RES view twice more:
      (near/far, march, hash encode, density = encode + sigma MLP, color,
      composite): the stages run in order on one stream, so each event span is
      that stage's device time plus any wait for the host inside it;
-  2. under torch.profiler: the device's busy time (the sum of the
-     device-side events' own times) against the view's wall time, the
+  2. under torch.profiler: the device's busy time (the union of the
+     device-side events' intervals) against the view's wall time, the
      number of device events, and the top kernels by device time.
 
 Imports only the port (never JAX). Prints one line per stage and writes
@@ -66,7 +66,7 @@ def main(argv=None):
     from focnerf_tpu_torch.models import nerf
     from focnerf_tpu_torch.ops.occupancy import occupancy_bitfield
     from focnerf_tpu_torch.render import renderer
-    from focnerf_tpu_torch.utils.measure import device_events, seeded_model
+    from focnerf_tpu_torch.utils.measure import busy_ms as device_busy_ms, device_events, seeded_model
 
     dev = resolve_device(None)
     smi = subprocess.run(
@@ -114,7 +114,7 @@ def main(argv=None):
         view()
         prof_wall_ms = (time.time() - t0) * 1e3
     events = device_events(prof)
-    busy_ms = sum(ms for _, ms in events)
+    busy_ms = device_busy_ms(prof)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for name, ms in events:
         by_name[name][0] += ms
