@@ -85,13 +85,32 @@ non-zero exit code and no result line:
  11. baked profile: one 800x800 frame at 256^3 (dense, uint8-resident, and
      dense sh_deg 2) by stage, and the device's busy share;
  12. procedural: ``make_hard_scene`` at gt_res 256 and 800x800 on the card;
-     ms per GT frame; a val PNG within 1/255 of its frame.
+     ms per GT frame; a val PNG within 1/255 of its frame;
+ 13. voxel reference: a dense and a K-planes train step at 32^3 on 64x64
+     views, on the card against the CPU: loss and every gradient in fp32
+     (loss <= 1e-4 relative, gradients <= 1e-3 relative L2), and the card's
+     default bf16 step's loss within 1e-2;
+ 14. voxel: ``main_voxel`` through its entry point, dense 256^3 on phase 5's
+     sphere scene (300 steps on the c2f ladder 64, 128, 256, ri 512, remat
+     on) and VM rank 16 at 128^3 with ``--bake_quantize`` (each: the train
+     loss must halve and the val PSNR reach 20 dB; the baked npz and the
+     mesh must exist), 20 steps at 256^3 with remat on and off (ms/step,
+     peak memory), then ``--voxel_dynamic`` and ``--voxel_kplanes 8`` at
+     128^3 on the dynamic hard scene (400x400, GT at 128^3, 200 steps; a
+     finite val PSNR): ms/step, supervised rays/s, peak memory, kernel
+     launches (none: the voxel path runs neither kernel);
+ 15. voxel profile: one dense 256^3 train step by stage (relayout, hat
+     matrices, resample, fold; forward, backward with its recompute, Adam)
+     and 5 steps under torch.profiler for the device's busy share.
+
+Every phase prints its seconds (``[phase] <name>: s``).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the training path (``launches``), in the
 ``combined`` run (``launches_compose``), in the ``editable`` run
-(``launches_edit``) and in the two ``--baked`` runs
-(``launches_baked_compose``, ``launches_baked_edit``).
+(``launches_edit``), in the two ``--baked`` runs
+(``launches_baked_compose``, ``launches_baked_edit``) and over phase 14's
+voxel runs (``launches_voxel``).
 """
 
 from __future__ import annotations
@@ -1836,6 +1855,289 @@ def phase_procedural(work: str, dev, smi: str):
         raise AssertionError(f"procedural val PNG {png.shape} off the rendered frame by {err}")
 
 
+VOXEL_ITERS, DYN_ITERS = 300, 200  # PARITY.md:25's budget; the dynamic families' smoke depth
+VOXEL_RES, VM_RES = 256, 128  # the dense field at the default --bake_res; VM (and dynamic) at bench.py's 128^3
+DENSE_C2F = 3  # the dense run's c2f stages (64, 128, 256)
+DYN_RES, DYN_GT_RES = 400, 128  # harddyn_400_128 (tools/parity.py, --res 400 --views 30)
+VOXEL_REF_LOSS, VOXEL_REF_GRAD, VOXEL_REF_BF16 = 1e-4, 1e-3, 1e-2  # card fp32 / bf16 step against the CPU
+
+
+def run_voxel_cli(tag: str, argv, dev, smi: str, final_steps: int = 0):
+    """``main_voxel`` on the card through its entry point: prints ms/step
+    (of the last ``final_steps`` steps, a c2f run's full-resolution stage,
+    whose seconds ``info`` holds; 0: all), supervised rays/s, peak memory,
+    the train mse at both ends of the run, the val PSNR and the kernel
+    launches (the voxel path runs neither kernel). Returns (info, launches,
+    first mse, last mse)."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps import main_voxel
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    _, info = main_voxel.main(argv, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mse = info["step_mse"]
+    n = max(len(mse) // 10, 1)
+    first, last = float(mse[:n].mean()), float(mse[-n:].mean())
+    val = info.get("val_psnr")
+    steps = final_steps or len(mse)
+    stages = f"; stage train PSNRs {[round(p, 2) for p in info['stage_psnrs']]} dB" if "stage_psnrs" in info else ""
+    print(f"[voxel] {tag}: {len(mse)} steps; {steps} {'final-stage ' if final_steps else ''}steps in "
+          f"{info['seconds']:.2f} s ({info['seconds'] / steps * 1e3:.2f} ms/step, {info['rays_per_sec']:.0f} "
+          f"supervised rays/s; the first step's set-up and the GT pre-warps included), {wall:.2f} s with loading, "
+          f"every stage, saving, mesh and val; peak memory {peak:.3f} GiB; train mse first {n} steps {first:.5f}, "
+          f"last {n} {last:.5f}{stages}; val PSNR {val if val is None else round(val, 3)} dB; kernel launches "
+          f"{launches} ({smi})")
+    if not (np.isfinite(mse).all() and val is not None and np.isfinite(val)):
+        raise AssertionError(f"{tag}: non-finite training mse or val PSNR {val}")
+    return info, launches, first, last
+
+
+def phase_voxel(work: str, dev, smi: str) -> dict:
+    """``main_voxel`` on the card at full width: dense VOXEL_RES^3 on phase
+    5's sphere scene (VOXEL_ITERS steps on the c2f ladder of DENSE_C2F
+    stages, remat on, 800x800 views), then 20 steps at VOXEL_RES^3 with
+    remat on and off for their time and peak memory; VM rank 16 at
+    VM_RES^3 with ``--bake_quantize``; ``--voxel_dynamic`` and
+    ``--voxel_kplanes 8`` at VM_RES^3 on the dynamic hard scene (DYN_RES^2
+    views, GT at DYN_GT_RES^3). The dense and VM runs must halve their train
+    loss and reach 20 dB on the val views; every run must write a finite
+    val PSNR. Returns the kernel launches summed over the runs."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps.main_voxel import _rgb_on_white
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.data.procedural import make_hard_dynamic_scene
+    from focnerf_tpu_torch.data.provider import DatasetOptions, NeRFDataset
+    from focnerf_tpu_torch.train.voxel import _c2f_stage_plan, fit_voxels
+
+    # phase 5's scene was written at the default --scale: read with it, the
+    # sphere (radius 0.8) sits in the [-1, 1] box and every camera (radius 3)
+    # outside it, the geometry --scale 1.0 gives a scene written in ngp units
+    scene, scale = os.path.join(work, "train_scene"), parse_options(["x"]).scale
+    total = dict.fromkeys(counters(), 0)
+    common = ["--scale", str(scale), "--bound", "1.0", "--iters", str(VOXEL_ITERS)]
+    # at main_voxel's defaults the dense field needs more than VOXEL_ITERS
+    # steps at 256^3 (PERF.md §6); the c2f ladder reaches the gate in them
+    ladder = _c2f_stage_plan(VOXEL_RES, DENSE_C2F, VOXEL_ITERS)
+    for tag, name, extra, final in (
+            (f"dense {VOXEL_RES}^3 (--voxel_c2f {DENSE_C2F}: {', '.join(str(r) for r, _ in ladder)})", "dense",
+             ["--bake_res", str(VOXEL_RES), "--voxel_c2f", str(DENSE_C2F)], ladder[-1][1]),
+            (f"VM rank 16 at {VM_RES}^3, --bake_quantize", "vm",
+             ["--bake_res", str(VM_RES), "--voxel_vm", "16", "--bake_quantize"], 0)):
+        ws = os.path.join(work, f"voxel_{name}")
+        info, launches, first, last = run_voxel_cli(tag, [scene, "--workspace", ws] + common + extra, dev, smi,
+                                                    final)
+        total = {k: total[k] + v for k, v in launches.items()}
+        res = VOXEL_RES if name == "dense" else VM_RES
+        for f in (f"baked_{res}_sh0.npz", "mesh.obj"):
+            if not os.path.exists(os.path.join(ws, f)):
+                raise AssertionError(f"{tag}: no {f}")
+        if name == "vm":
+            rep = info["quantization_report"]
+            print(f"[voxel] {tag}: uint8 against float volume {rep['psnr_quantized_vs_float_mean']} dB mean, "
+                  f"{rep['psnr_quantized_vs_float_min']} min over {rep['views']} probe views; "
+                  f"vmfield {os.path.getsize(os.path.join(ws, f'vmfield_{VM_RES}_r16.npz')) / 2**20:.1f} MiB")
+        if not last < 0.5 * first:
+            raise AssertionError(f"{tag}: the train loss did not halve ({first} -> {last})")
+        if not info["val_psnr"] >= 20.0:
+            raise AssertionError(f"{tag}: val PSNR {info['val_psnr']} dB, want >= 20")
+
+    ds = NeRFDataset(DatasetOptions(path=scene, scale=scale), split="train", device=dev)
+    imgs = _rgb_on_white(ds)
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, info = fit_voxels(ds.poses, imgs, ds.intrinsics, resolution=VOXEL_RES, iters=20, remat=remat, device=dev)
+        torch.cuda.synchronize()
+        print(f"[voxel] dense {VOXEL_RES}^3, 20 steps with remat {'on' if remat else 'off'}: "
+              f"{info['seconds'] / 20 * 1e3:.2f} ms/step, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({smi})")
+    del ds, imgs
+
+    t0 = time.time()
+    dscene = make_hard_dynamic_scene(os.path.join(work, f"harddyn_{DYN_RES}_{DYN_GT_RES}"), n_times=7,
+                                     views_per_time=4, H=DYN_RES, W=DYN_RES, gt_res=DYN_GT_RES, device=dev)
+    print(f"[voxel] dynamic hard scene: 7 times x 4 train views, 4 val, 4 test of {DYN_RES}x{DYN_RES} (GT at "
+          f"{DYN_GT_RES}^3) written in {time.time() - t0:.1f} s")
+    for tag, flags in ((f"--voxel_dynamic at {VM_RES}^3", ["--voxel_dynamic"]),
+                       (f"--voxel_kplanes 8 at {VM_RES}^3", ["--voxel_kplanes", "8"])):
+        ws = os.path.join(work, "voxel_" + flags[0].strip("-"))
+        argv = [dscene, "--workspace", ws, "--bake_res", str(VM_RES), "--scale", "1.0", "--bound", "1.0",
+                "--iters", str(DYN_ITERS)] + flags
+        _, launches, _, _ = run_voxel_cli(tag, argv, dev, smi)
+        total = {k: total[k] + v for k, v in launches.items()}
+    return total
+
+
+def _loss_and_grads(loss_fn, params, pose, t, target, mask):
+    """(loss, [gradient of each leaf]) of one evaluation of ``loss_fn``."""
+    from focnerf_tpu_torch.train.voxel import _leaves, _rebuild
+
+    leaves = [p.detach().clone().requires_grad_(True) for p in _leaves(params)]
+    loss, _ = loss_fn(_rebuild(params, leaves), pose, t, target, mask)
+    loss.backward()
+    return float(loss.detach()), [p.grad.detach().cpu().double() for p in leaves]
+
+
+def phase_voxel_reference(dev):
+    """One dense and one K-planes train step at 32^3 on 64x64 views, on the
+    card against the CPU: the loss and the gradient of every parameter in
+    fp32 (compute_dtype float32) within VOXEL_REF_LOSS / VOXEL_REF_GRAD, and
+    the card's default bf16 step's loss within VOXEL_REF_BF16."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.render import baked as tb
+    from focnerf_tpu_torch.train import voxel as tvox
+    from focnerf_tpu_torch.train import voxel_kplanes as tkp
+
+    R, size = 32, 64
+    intr = np.array([1.2 * size, 1.2 * size, size / 2, size / 2], np.float32)
+    gt = tb.BakedVolume(rgba=blob_volume(64, seed=3), bound=1.0)
+    g = torch.Generator().manual_seed(11)
+    raw = torch.randn((R, R, R, 4), generator=g) * 0.5
+    raw[..., -1] += 1.0
+    families = (("dense", raw, lambda p, t: p, lambda p: 1e-4 * tvox.tv_loss(p)),
+                ("K-planes rank 8", tkp.init_kplanes_field(R, rank=8, time_res=16, init_scale=0.3, w0=0.5,
+                                                           generator=g, device="cpu"),
+                 tkp.collapse_kplanes, lambda p: tkp.kplanes_reg(p, 1e-4, 1e-3)))
+    for pose in (axis_poses()[1], axis_poses()[4]):
+        img = tb.render_baked(gt, pose, intr, size, size, bg_color=1.0)[0]
+        axis, flip = tb.view_axis(pose, 1.0)
+        cpu_target = tb.warp_gt_to_intermediate(img, pose, intr, 1.0, axis=axis, flip=flip, ri=2 * R)
+        card_target = tuple(x.to(dev) for x in cpu_target)
+        for label, params, raw_fn, reg_fn in families:
+            kw = dict(raw_fn=raw_fn, reg_fn=reg_fn, bound=1.0, sh_degree=0, ri=2 * R, bg_color=1.0,
+                      density_scale=1.0, remat=True, supervise="intermediate")
+            card_params = type(params)(*(p.to(dev) for p in params)) if not torch.is_tensor(params) \
+                else params.to(dev)
+            want = _loss_and_grads(tvox._make_loss(axis, flip, **kw), params, torch.from_numpy(pose), 0.4,
+                                   *cpu_target)
+            got32 = _loss_and_grads(tvox._make_loss(axis, flip, compute_dtype=torch.float32, **kw), card_params,
+                                    torch.from_numpy(pose).to(dev), 0.4, *card_target)
+            got16 = _loss_and_grads(tvox._make_loss(axis, flip, **kw), card_params, torch.from_numpy(pose).to(dev),
+                                    0.4, *card_target)
+            rel = lambda a, b: float((a - b).norm() / max(float(b.norm()), 1e-30))  # noqa: E731
+            loss32, loss16 = abs(got32[0] - want[0]) / abs(want[0]), abs(got16[0] - want[0]) / abs(want[0])
+            grad32 = max(rel(a, b) for a, b in zip(got32[1], want[1]))
+            grad16 = max(rel(a, b) for a, b in zip(got16[1], want[1]))
+            print(f"[voxel-reference] {label} train step at {R}^3, 64x64 view, axis {axis} flip {flip}: card fp32 "
+                  f"against the CPU: loss rel err {loss32:.3g} (limit {VOXEL_REF_LOSS}), gradient rel L2 "
+                  f"{grad32:.3g} (limit {VOXEL_REF_GRAD}); card bf16: loss rel err {loss16:.3g} (limit "
+                  f"{VOXEL_REF_BF16}), gradient rel L2 {grad16:.3g}")
+            if not (loss32 <= VOXEL_REF_LOSS and grad32 <= VOXEL_REF_GRAD and loss16 <= VOXEL_REF_BF16):
+                raise AssertionError(f"voxel-reference {label}: the card's step disagrees with the CPU's")
+
+
+def phase_voxel_profile(work: str, dev, smi: str):
+    """Where one dense VOXEL_RES^3 train step's time goes (phase 5's scene,
+    ri 2 VOXEL_RES, remat on, bf16 operands), after two warm-up steps: CUDA-event
+    spans of the relayout, the hat matrices, the resample products and the
+    fold (in the forward, and again in the backward's recompute), of the
+    whole forward, backward and Adam; then 5 steps under torch.profiler
+    for the device's busy share and top kernels."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from focnerf_tpu_torch.apps.main_voxel import _rgb_on_white
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.data.provider import DatasetOptions, NeRFDataset
+    from focnerf_tpu_torch.render import baked as tb
+    from focnerf_tpu_torch.train import voxel as tvox
+    from focnerf_tpu_torch.utils.measure import busy_ms, device_events
+
+    ds = NeRFDataset(DatasetOptions(path=os.path.join(work, "train_scene"), scale=parse_options(["x"]).scale),
+                     split="train", device=dev)
+    img, pose = _rgb_on_white(ds)[0], ds.poses[0]
+    axis, flip = tvox._pose_variant(pose, 1.0)
+    R, ri = VOXEL_RES, 2 * VOXEL_RES
+    target = tb.warp_gt_to_intermediate(img, pose, ds.intrinsics, 1.0, axis=axis, flip=flip, ri=ri)
+    raw = tvox.init_voxel_field(R, generator=torch.Generator().manual_seed(0), device=dev).requires_grad_(True)
+    opt = torch.optim.Adam([raw], lr=5e-2, eps=1e-8)
+    loss_fn = tvox._make_loss(axis, flip, raw_fn=lambda p, t: p, reg_fn=lambda p: 1e-4 * tvox.tv_loss(p), bound=1.0,
+                              sh_degree=0, ri=ri, bg_color=1.0, density_scale=1.0, remat=True,
+                              supervise="intermediate")
+    pose_t = torch.from_numpy(pose).to(dev)
+    spans = collections.defaultdict(list)
+    where = ["forward"]
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def step(record: bool):
+        where[0] = "forward"
+        e0 = event()
+        loss, _ = loss_fn(raw, pose_t, 0.0, *target)
+        e1 = event()
+        where[0] = "backward"
+        loss.backward()
+        e2 = event()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        e3 = event()
+        if record:
+            for name, a, b in (("forward", e0, e1), ("backward", e1, e2), ("Adam", e2, e3)):
+                spans[name].append((a, b))
+
+    stages = ("_relayout", "_hat_matrices", "_resample", "_accumulate")
+    saved = {n: getattr(tb, n) for n in stages}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            a = event()
+            try:  # the backward's recompute may stop inside a stage once it has what it needs
+                return fn(*args, **kwargs)
+            finally:
+                spans[f"{name.strip('_')} ({where[0]})"].append((a, event()))
+        return run
+
+    for _ in range(2):
+        step(False)
+    torch.cuda.synchronize()
+    for n, fn in saved.items():
+        setattr(tb, n, timed(n, fn))
+    try:
+        t0 = time.perf_counter()
+        step(True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, fn in saved.items():
+            setattr(tb, n, fn)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    print(f"[voxel-profile] one dense {R}^3 train step (ri {ri}, remat on, bf16 operands), wall {wall:.2f} ms; "
+          "CUDA-event spans (ms, share of wall): " + ", ".join(f"{k} {v:.3f} ({v / wall:.1%}, {len(spans[k])} calls)"
+                                                               for k, v in ms.items()) + f" ({smi})")
+    n_steps = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(False)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    busy = busy_ms(prof) / n_steps
+    by_name = collections.Counter()
+    for name, t in device_events(prof):
+        by_name[name] += t / n_steps
+    print(f"[voxel-profile] {n_steps} steps under torch.profiler: wall {wall:.2f} ms/step, device busy {busy:.2f} "
+          f"ms/step ({busy / wall:.1%}; idle {1 - busy / wall:.1%})")
+    for name, t in by_name.most_common(8):
+        print(f"[voxel-profile]   {t:8.3f} ms/step {t / busy:6.1%}  {name[:110]}")
+
+
 def main() -> int:
     import torch
 
@@ -1846,38 +2148,53 @@ def main() -> int:
     import focnerf_tpu_torch  # noqa: F401  (fails outside the repository)
 
     t_start = time.time()
-    smi = phase_device()
-    phase_build()
+
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.time() - t0:.1f} s")
+        return out
+
+    smi = phase("device", phase_device)
+    phase("build", phase_build)
     from focnerf_tpu_torch.config import parse_options
 
     cfg = parse_options(["scene", "-O"]).nerf_config()  # the training path's model
-    kernels = [*phase_composite_kernel(), phase_composite_backward_kernel(), phase_table_grad_kernel(cfg)]
+    kernels = phase("kernels", lambda: [*phase_composite_kernel(), phase_composite_backward_kernel(),
+                                        phase_table_grad_kernel(cfg)])
     work = os.path.join(HERE, "workspace_chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     dev = torch.device("cuda")
-    params, cfg, bits = phase_serving(work, dev)
-    launches, trainer = phase_train(work, dev)
-    phase_eval_renderers(trainer, train_dataset(os.path.join(work, "train_scene"), dev, "val"))
+    params, cfg, bits = phase("serving", phase_serving, work, dev)
+    launches, trainer = phase("training", phase_train, work, dev)
+    phase("eval renderers", phase_eval_renderers, trainer, train_dataset(os.path.join(work, "train_scene"), dev, "val"))
     ds = train_dataset(os.path.join(work, "train_scene"), dev)
-    phase_train_profile(trainer, ds, dev)
-    phase_backward_mask(trainer, ds, dev)
-    phase_reference(params, cfg, bits)
-    phase_iterative_reference(trainer)
-    phase_train_reference(trainer)
-    phase_second_object(work, dev)
-    composed, per_sample, root, scene = phase_composition(work, dev, smi)
-    loaded, march, pose = phase_composition_reference(root, scene, dev)
-    phase_compose_profile(loaded, march, pose)
-    phase_baked_reference(dev)
-    baked_runs, volumes = phase_baked_compose(work, root, scene, dev, smi, per_sample)
-    phase_baked_profile(volumes, pose, dev, smi)
-    phase_procedural(work, dev, smi)
+    phase("train profile", phase_train_profile, trainer, ds, dev)
+    phase("backward mask", phase_backward_mask, trainer, ds, dev)
+    del ds
+    phase("render reference", phase_reference, params, cfg, bits)
+    phase("iterative reference", phase_iterative_reference, trainer)
+    phase("train reference", phase_train_reference, trainer)
+    phase("second object", phase_second_object, work, dev)
+    composed, per_sample, root, scene = phase("composition", phase_composition, work, dev, smi)
+    loaded, march, pose = phase("composition reference", phase_composition_reference, root, scene, dev)
+    phase("compose profile", phase_compose_profile, loaded, march, pose)
+    del loaded, march
+    phase("baked reference", phase_baked_reference, dev)
+    baked_runs, volumes = phase("baked composition", phase_baked_compose, work, root, scene, dev, smi, per_sample)
+    phase("baked profile", phase_baked_profile, volumes, pose, dev, smi)
+    del volumes
+    phase("procedural", phase_procedural, work, dev, smi)
+    phase("voxel reference", phase_voxel_reference, dev)
+    voxel_launches = phase("voxel", phase_voxel, work, dev, smi)
+    phase("voxel profile", phase_voxel_profile, work, dev, smi)
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
     line = [{**k, "launches": launches[k["name"]], "launches_compose": composed["combined"][k["name"]],
              "launches_edit": composed["editable"][k["name"]],
              "launches_baked_compose": baked_runs["combined"][k["name"]],
-             "launches_baked_edit": baked_runs["editable"][k["name"]]} for k in kernels]
+             "launches_baked_edit": baked_runs["editable"][k["name"]],
+             "launches_voxel": voxel_launches[k["name"]]} for k in kernels]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

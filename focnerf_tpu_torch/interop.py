@@ -12,6 +12,9 @@
     -> the port's ``TrainState``, so a JAX run resumes in the port;
   - ``baked_volume_from_jax``: a JAX ``BakedVolume`` or ``QuantizedVolume``
     (render/baked.py, numpy-convertible fields) -> the port's;
+  - ``voxel_field_from_jax``, ``vm_field_from_jax``, ``dyn_field_from_jax``,
+    ``kplanes_field_from_jax``: the voxel families' parameters (a raw grid,
+    or the family's NamedTuple of arrays) -> the port's tensors;
   - ``config_to_dict``/``config_from_dict``: ``NeRFConfig`` <-> the
     ``model_config.json`` dict that focnerf_tpu/train/checkpoints.py:29-63
     writes.
@@ -124,3 +127,33 @@ def baked_volume_from_jax(vol, device="cpu"):
         return QuantizedVolume(q=to(vol.q), scales=to(vol.scales), los=to(vol.los),
                                bound=float(vol.bound), sh_deg=int(vol.sh_deg))
     return BakedVolume(rgba=to(vol.rgba), bound=float(vol.bound), sh_deg=int(vol.sh_deg))
+
+
+def _field_from_jax(cls, field, device):
+    return cls(*(torch.from_numpy(np.array(a, dtype=np.float32)).to(device) for a in field))
+
+
+def voxel_field_from_jax(raw, device="cpu") -> torch.Tensor:
+    """A JAX dense raw field [R, R, R, C] -> the port's tensor on ``device``."""
+    return torch.from_numpy(np.array(raw, dtype=np.float32)).to(device)
+
+
+def vm_field_from_jax(field, device="cpu"):
+    """A JAX ``VMField`` (train/voxel_vm.py) -> the port's."""
+    from focnerf_tpu_torch.train.voxel_vm import VMField
+
+    return _field_from_jax(VMField, field, device)
+
+
+def dyn_field_from_jax(field, device="cpu"):
+    """A JAX ``DynVoxelField`` (train/voxel_dynamic.py) -> the port's."""
+    from focnerf_tpu_torch.train.voxel_dynamic import DynVoxelField
+
+    return _field_from_jax(DynVoxelField, field, device)
+
+
+def kplanes_field_from_jax(field, device="cpu"):
+    """A JAX ``KPlanesField`` (train/voxel_kplanes.py) -> the port's."""
+    from focnerf_tpu_torch.train.voxel_kplanes import KPlanesField
+
+    return _field_from_jax(KPlanesField, field, device)

@@ -31,6 +31,7 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 
 class BakedVolume(NamedTuple):
@@ -489,6 +490,7 @@ def _fold_blocks(
     return_od: bool = False,
     dequant=None,
     compute_dtype=None,
+    remat: bool = False,
 ):
     """Resample + front-to-back composite a sequence of slice blocks.
 
@@ -497,7 +499,10 @@ def _fold_blocks(
     the optical depth instead of T = exp(-od); ``dequant`` maps a raw block
     to values inside the loop (uint8-resident volumes). The resampling dtype
     is the blocks' own, or with ``dequant`` ``compute_dtype`` (None: fp32 on
-    the CPU, bf16 on the card). Differentiable through autograd.
+    the CPU, bf16 on the card). Differentiable through autograd; ``remat``
+    checkpoints each block's resample and fold (JAX's ``jax.checkpoint`` of
+    the scan body): autograd keeps only the block's inputs and recomputes
+    the rest in the backward, the same values in the same order.
 
     Returns (T or od [ri, ri], C [ri, ri, CH-1] premultiplied, D [ri, ri] or
     None)."""
@@ -515,12 +520,18 @@ def _fold_blocks(
         od, C = carry[0], carry[1].permute(0, 2, 1)
         D = carry[2] if with_depth else None
 
-    for Vb, zb in zip(V_f2b, z_f2b):
+    def block(Vb, zb, od, C, D):
         if dequant is not None:
             Vb = dequant(Vb).to(dtype)
         My, Mx = _hat_matrices(zb, e_z, e_y, e_x, gy, gx, b, iota, dtype)
         sl = _resample(Vb, My, Mx, dtype)
-        od, C, D = _accumulate(sl, zb, e_z, dt, density_scale, od, C, D)
+        return _accumulate(sl, zb, e_z, dt, density_scale, od, C, D)
+
+    for Vb, zb in zip(V_f2b, z_f2b):
+        if remat:
+            od, C, D = torch.utils.checkpoint.checkpoint(block, Vb, zb, od, C, D, use_reentrant=False)
+        else:
+            od, C, D = block(Vb, zb, od, C, D)
 
     first = od if return_od else torch.exp(-od)
     return first, C.permute(0, 2, 1), D
@@ -580,11 +591,14 @@ def _composite_core(
     block: int = 32,
     quant=None,  # (scales [CH], los [CH]) when rgba is uint8-resident
     compute_dtype=None,  # None: fp32 on the CPU, bf16 on the card
+    remat: bool = False,
+    with_depth: bool = True,
 ):
     """Slice-resample + front-to-back composite onto the intermediate plane.
 
     Returns (C [ri, ri, 3] premultiplied colour, T [ri, ri] transmittance,
-    D [ri, ri] depth along z', (ymin, xmin, dy_i, dx_i) grid geometry)."""
+    D [ri, ri] depth along z' (None without ``with_depth``: training never
+    reads it), (ymin, xmin, dy_i, dx_i) grid geometry)."""
     R = rgba.shape[0]
     b = bound
     dtype = compute_dtype or _device_dtype(rgba)
@@ -615,7 +629,8 @@ def _composite_core(
 
     T, C, D = _fold_blocks(
         V_f2b, z_f2b, e_z, e_y, e_x, gy, gx, dt, b, R, ri,
-        density_scale=density_scale, dequant=dequant, compute_dtype=dtype,
+        density_scale=density_scale, dequant=dequant, compute_dtype=dtype, remat=remat,
+        with_depth=with_depth,
     )
     if sh_deg > 0:
         C = sh_contract_plane(C, e_z, e_y, e_x, gy, gx, axis=axis, flip=flip, ri=ri, sh_deg=sh_deg)
@@ -678,10 +693,11 @@ def _render_core(
     sh_deg: int = 0,
     quant=None,
     compute_dtype=None,
+    remat: bool = False,
 ):
     C, T, D, geometry = _composite_core(
         rgba, bound, pose, axis=axis, flip=flip, ri=ri, density_scale=density_scale,
-        sh_deg=sh_deg, quant=quant, compute_dtype=compute_dtype,
+        sh_deg=sh_deg, quant=quant, compute_dtype=compute_dtype, remat=remat,
     )
     return _warp(C, T, D, geometry, pose, intr, axis=axis, flip=flip, H=H, W=W, ri=ri,
                  bg_color=bg_color)

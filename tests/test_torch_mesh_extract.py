@@ -1,0 +1,65 @@
+"""Mesh extraction (utils/mesh_extract.py) on the CPU against the JAX
+package's: the numpy marching tetrahedra, the native library built from
+native/marching_tets.cpp, and ``mesh_from_volume`` on a 16^3 field, compared
+as triangle sets after welding; and the OBJ/PLY writers."""
+
+import numpy as np
+import pytest
+import torch
+
+from focnerf_tpu.render import baked as jb
+from focnerf_tpu.utils import mesh_extract as jm
+from focnerf_tpu_torch.render import baked as tb
+from focnerf_tpu_torch.utils import mesh_extract as tm
+
+
+def field16():
+    """Two overlapping blobs with a ripple, sigma [16, 16, 16]."""
+    c = (np.arange(16, dtype=np.float32) + 0.5) / 16 * 2 - 1
+    X, Y, Z = np.meshgrid(c, c, c, indexing="ij")
+    s = 30 * np.exp(-((X - 0.2) ** 2 + Y**2 + Z**2) / 0.1) + 20 * np.exp(-((X + 0.3) ** 2 + (Y - 0.3) ** 2) / 0.05)
+    return (s + 2 * np.sin(7 * X) * np.cos(5 * Z)).astype(np.float32)
+
+
+def triangle_set(verts, faces):
+    """Each triangle as its sorted vertex coordinates, rounded; a sorted array."""
+    tris = np.round(verts[faces], 5)
+    tris = np.sort(tris.view([("", tris.dtype)] * 3).reshape(-1, 3), axis=1).view(tris.dtype).reshape(-1, 9)
+    return tris[np.lexsort(tris.T[::-1])]
+
+
+def test_numpy_marching_tets_equals_jax():
+    grid = field16()
+    for iso in (5.0, 12.5):
+        got = tm._marching_tets_numpy(grid, iso)
+        want = jm._marching_tets_numpy(grid, iso)
+        assert got.shape == want.shape and len(got) > 100
+        np.testing.assert_array_equal(got, want)
+
+
+def test_native_equals_numpy_after_welding():
+    lib = tm.native_lib()
+    if lib is None:
+        pytest.fail(f"the native marching tetrahedra did not build: {tm._native['note']}")
+    grid = field16()
+    got = tm.marching_tets(grid, 10.0)
+    want = tm._marching_tets_numpy(grid, 10.0)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(triangle_set(*tm.weld_vertices(got)), triangle_set(*tm.weld_vertices(want)))
+
+
+def test_mesh_from_volume_matches_jax(tmp_path):
+    rgba = np.concatenate([np.full((16, 16, 16, 3), 0.5, np.float32), field16()[..., None]], -1)
+    got = tm.mesh_from_volume(tb.BakedVolume(rgba=torch.from_numpy(rgba), bound=1.5), 10.0)
+    want = jm.mesh_from_volume(jb.BakedVolume(rgba=rgba, bound=1.5), 10.0)
+    assert len(got[1]) > 100 and np.abs(got[0]).max() <= 1.5
+    np.testing.assert_array_equal(triangle_set(*got), triangle_set(*want))
+
+    tm.save_obj(str(tmp_path / "t.obj"), *got)
+    jm.save_obj(str(tmp_path / "j.obj"), *want)
+    lines = open(tmp_path / "t.obj").read().splitlines()
+    assert sum(line.startswith("v ") for line in lines) == len(got[0])
+    assert sum(line.startswith("f ") for line in lines) == len(got[1])
+    tm.save_ply(str(tmp_path / "t.ply"), *got)
+    jm.save_ply(str(tmp_path / "j.ply"), *got)
+    assert open(tmp_path / "t.ply", "rb").read() == open(tmp_path / "j.ply", "rb").read()
