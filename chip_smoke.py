@@ -24,7 +24,12 @@ non-zero exit code and no result line:
      backward timed at [4096, 128] and [4096, 16]; the hash-table
      gradient scatter on the -O encode of 4096 x 128 and 4096 x 16 points,
      on one level-0 cell, on the exact 8-corner layout and at one and four
-     channels, timed at the two -O shapes;
+     channels, timed at the two -O shapes; then, at the training paths'
+     newer shapes, held and timed: the composite forward and backward at
+     [4096, 192] and [4096, 576] (T_thresh 0, the uniform path with
+     importance samples), the table gradient on the exact layout of 4096 x
+     192 points (with ``index_add_``'s time) and on half the levels of the
+     -O encode (one phase of ``--grad_level_phases 2``);
   4. serving: a blender-layout scene with 800x800 test views, a checkpoint
      of the default full-width model (seeded weights; the density grid is
      the field's sigma at every cell centre) and
@@ -51,11 +56,23 @@ non-zero exit code and no result line:
      (plain versions) must agree, through the occupancy path and through the
      uniform path of ``main_nerf --test`` without ``-O`` (the serving
      model), and through the iterative renderer (the trained model); and
-     one train step's loss and gradients on the card must agree with the
-     CPU's;
+     train steps' losses and gradients on the card must agree with the
+     CPU's: the -O step, the uniform step with importance upsampling, an
+     -O2 step in a truncated c2f stage on a gradient phase (the other
+     levels' rows exactly 0), the -O step on a patch-sampled batch and with
+     the TV term;
+  6b. uniform training: ``main_nerf`` without ``-O`` at full width on phase
+     5's scene (one val view), UNIFORM_ITERS steps of 128 + 64 importance
+     samples a ray with ``--error_map`` and ``--tv_weight``: ms/step,
+     samples/step, peak memory; the loss must halve, the val PSNR be
+     finite, the error map move on exactly the views the batches drew,
+     each backward kernel launch once a step and the forward once a step
+     plus once per eval chunk, and the exported mesh have faces;
   7. composition: a second object (BALL, a smaller sphere of other colours
      beside the first, constant non-zero object features) is trained with
-     ``main_nerf -O`` on a scene with the same cameras; both objects are laid
+     ``main_nerf -O2 --c2f 50:8,100:12`` on a scene with the same cameras
+     (ms/step per c2f stage; the table gradient once a step, on the columns
+     of that step's level subset); both objects are laid
      out as ``<root>/ws_<obj>/checkpoints`` with ``<root>/obj_feats/``, and
      ``combined`` composes the val views of both spheres together (occupancy
      path, K=2 resident): s/view, peak memory, PSNR_w >= 20 dB, the forward
@@ -109,8 +126,10 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the training path (``launches``), in the
 ``combined`` run (``launches_compose``), in the ``editable`` run
 (``launches_edit``), in the two ``--baked`` runs
-(``launches_baked_compose``, ``launches_baked_edit``) and over phase 14's
-voxel runs (``launches_voxel``).
+(``launches_baked_compose``, ``launches_baked_edit``), over phase 14's
+voxel runs (``launches_voxel``), in the uniform training run
+(``launches_uniform``) and in the second object's ``-O2`` run
+(``launches_o2``).
 """
 
 from __future__ import annotations
@@ -135,6 +154,10 @@ OBJECT = "sphere"  # the training scene's one object
 SPHERE = ((0.0, 0.0, 0.0), SPHERE_RADIUS, (0.9, 0.2, 0.1), (0.1, 0.3, 0.9))
 BALL = ((0.0, 0.0, 1.35), 0.45, (0.95, 0.8, 0.1), (0.2, 0.8, 0.2))  # the composition's second object
 SECOND, SECOND_ITERS = "ball", 200
+# the second object's -O2 stages: (end step, active levels), at epoch ends
+SECOND_C2F = ((50, 8), (100, 12))
+# the uniform-sampling run (no -O): steps, (samples, importance samples), TV weight
+UNIFORM_ITERS, UNIFORM_STEPS, UNIFORM_TV = 300, (128, 64), 1e-4
 # views each eval renderer renders in phase 5 (the rest: VAL_VIEWS); cut
 # from 4 to keep the smoke near half its time limit on a slow host
 EVAL_VIEWS = {"iter_dev": 2, "oneshot": 1}
@@ -643,6 +666,107 @@ def phase_table_grad_kernel(cfg) -> dict:
     }
 
 
+def phase_uniform_shapes(cfg) -> list:
+    """The kernels at the shapes the uniform and -O2 training paths give
+    them, each held against its plain version and timed: the composite
+    forward and backward at [4096, 192] (128 samples + 64 importance
+    samples) and [4096, 576] (512 + 64), T_thresh 0, normalized ts, a
+    quarter of the rays thin; the table gradient on the exact 8-corner layout
+    of 4096 x 192 points (J = 128, the uniform path's encode), with
+    ``index_add_``'s time, and on half the levels of the -O encode at 4096 x
+    128 points (J = 8: one phase of --grad_level_phases 2). Returns the rows
+    (label, ms, plain_ms, library_ms or None, bound_ms, max_abs_err)."""
+    import torch
+
+    from focnerf_tpu_torch.ops import hashgrid as thg
+    from focnerf_tpu_torch.ops.composite import (
+        composite_rays,
+        composite_rays_fused,
+        composite_rays_fused_backward,
+        group_width,
+    )
+    from focnerf_tpu_torch.utils.measure import device_ms
+
+    rows = []
+    for t in (192, 576):
+        sig, rgb, dts, ts, bg = composite_inputs(t, thin=True)
+        ts = ts / ts[:, -1:]
+        n = sig.shape[0]
+        got = composite_rays_fused(sig, rgb, dts, ts, bg_color=bg, T_thresh=0.0)
+        ref = composite_rays(sig, rgb, dts, ts, bg_color=bg, T_thresh=0.0)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        cot = tuple(torch.randn(sh, generator=g, device="cuda") for sh in ((n, 3), (n,), (n,)))
+
+        def kernel_bwd():
+            return composite_rays_fused_backward(sig, rgb, dts, ts, bg, got, cot, T_thresh=0.0)
+
+        def plain_bwd():
+            s_, c_ = sig.detach().requires_grad_(), rgb.detach().requires_grad_()
+            out = composite_rays(s_, c_, dts, ts, bg_color=bg, T_thresh=0.0)
+            return torch.autograd.grad((out["image"], out["weights_sum"], out["depth"]), (s_, c_), cot)
+
+        dk, dp = kernel_bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(a).all() for a in (*got, *dk)):
+            raise AssertionError(f"composite kernels: non-finite output at T={t}")
+        f_err = max(float((a - b).abs().max()) for a, b in zip(got, (ref["image"], ref["weights_sum"], ref["depth"])))
+        b_err = max(float((a - b).abs().max()) for a, b in zip(dk, dp))
+        ms, _ = device_ms(lambda: composite_rays_fused(sig, rgb, dts, ts, bg_color=bg, T_thresh=0.0))
+        plain_ms, _ = device_ms(lambda: composite_rays(sig, rgb, dts, ts, bg_color=bg, T_thresh=0.0))
+        bms, _ = device_ms(kernel_bwd)
+        bplain_ms, _ = device_ms(plain_bwd)
+        # bytes, as phase 3's rows: every sample read (T_thresh 0), the
+        # per-ray background and outputs; the backward also writes 16 B a
+        # sample and reads the saved outputs and cotangents
+        f_bound = (n * t * 24 + n * 32) / HBM_BYTES_PER_S * 1e3
+        b_bound = (n * t * 24 + n * 52 + n * t * 16) / HBM_BYTES_PER_S * 1e3
+        print(f"[kernel-uniform] composite_rays_fused [{n},{t}] T_thresh=0, {group_width(t)} lanes per ray, "
+              f"{t // group_width(t)} chunks a ray: max_abs_err {f_err:.3g} (limit 1e-5), device {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, bound {f_bound:.5f} ms (bytes)")
+        print(f"[kernel-uniform] composite_rays_fused_backward [{n},{t}] T_thresh=0: max_abs_err {b_err:.3g} "
+              f"(limit 1e-5), device {bms:.5f} ms, plain (forward + autograd) {bplain_ms:.5f} ms, bound "
+              f"{b_bound:.5f} ms (bytes)")
+        if not (f_err <= 1e-5 and b_err <= 1e-5):
+            raise AssertionError(f"composite kernels disagree with their plain versions at T={t}: {f_err} {b_err}")
+        rows += [(f"composite_rays_fused [{n},{t}]", ms, plain_ms, None, f_bound, f_err),
+                 (f"composite_rays_fused_backward [{n},{t}]", bms, bplain_ms, None, b_bound, b_err)]
+        del sig, rgb, dts, ts, bg, got, ref, dk, dp
+
+    cases = (("exact 8 corners 4096x192", dict(samples=192, stochastic=False), None),
+             ("-O2 half the levels 4096x128", dict(samples=128), 0))
+    for label, kw, phase in cases:
+        rows_t, weights, cot, cols, n_rows = table_grad_inputs(cfg, **kw)
+        if phase is not None:  # the live columns of phase 0 of 2, as HashGridEncode selects them
+            live = [j for j, lvl in enumerate(cols) if lvl % 2 == phase]
+            sel = torch.tensor(live, device=rows_t.device)
+            rows_t, weights = rows_t.index_select(1, sel).contiguous(), weights.index_select(1, sel).contiguous()
+            cols = tuple(cols[j] for j in live)
+        m, J = rows_t.shape
+        C = cfg.level_dim
+        col_level = torch.tensor(cols, dtype=torch.int32, device=rows_t.device)
+        got = thg.hashgrid_table_grad(rows_t, weights, cot, cols, n_rows, level_dim=C)
+        want = thg.table_grad_plain(rows_t, weights, cot, col_level, n_rows, C)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not (err <= 1e-5 * scale and torch.equal(got == 0, want == 0)):
+            raise AssertionError(f"table-gradient kernel disagrees with index_add_ on {label}: {err / scale}")
+        contrib = (weights[..., None] * cot.reshape(m, -1, C).index_select(1, col_level)).reshape(-1, C)
+        flat = rows_t.reshape(-1)
+        ms, _ = device_ms(lambda: thg.hashgrid_table_grad(rows_t, weights, cot, cols, n_rows, level_dim=C))
+        plain_ms, _ = device_ms(lambda: thg.table_grad_plain(rows_t, weights, cot, col_level, n_rows, C))
+        lib_ms, _ = device_ms(lambda: torch.zeros((n_rows, C), device=flat.device).index_add_(0, flat, contrib))
+        nbytes = m * J * 8 + cot.numel() * 4 + n_rows * C * 4 + J * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"[kernel-uniform] hashgrid_table_grad {label} ({m} points x {J} columns, levels "
+              f"{sorted(set(cols))}): max_abs_err {err:.3g} ({err / scale:.3g} of max|d_table|, limit 1e-5), "
+              f"device {ms:.5f} ms, plain {plain_ms:.5f} ms, index_add_ alone {lib_ms:.5f} ms, bound "
+              f"{bound:.5f} ms ({nbytes} B)")
+        rows.append((f"hashgrid_table_grad {label}", ms, plain_ms, lib_ms, bound, err))
+        del rows_t, weights, cot, got, want, contrib, flat
+    return rows
+
+
 def _ngp_to_nerf(ngp, scale: float):
     """Inverse of nerf_matrix_to_ngp at ``scale`` and zero offset."""
     import numpy as np
@@ -947,13 +1071,11 @@ def phase_train_profile(trainer, ds, dev, steps: int = 5):
     of ``steps`` steps timed with a synchronize around it, then the same
     steps under torch.profiler for the device's busy share and top kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from focnerf_tpu_torch.core.geometry import near_far_from_aabb
     from focnerf_tpu_torch.ops.marching import march_rays_skip
     from focnerf_tpu_torch.render.renderer import default_aabb
     from focnerf_tpu_torch.train.steps import occupancy_loss, step_draws
-    from focnerf_tpu_torch.utils.measure import busy_ms, device_events
 
     state, cfg, slab = trainer.state, trainer.cfg, trainer.active_slab
     occ = trainer._occ_bits_for_batch()
@@ -994,25 +1116,40 @@ def phase_train_profile(trainer, ds, dev, steps: int = 5):
           + ", ".join(f"{k} {v:.2f} ({v / total:.1%})" for k, v in stages.items())
           + f"; step total {total:.2f} (the march runs again inside the forward); {staged_clocks.summary()}")
 
-    with SMClocks() as profiled_clocks, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = clock()
+    profiled_steps(trainer, ds, steps, "profile")
+
+
+def profiled_steps(trainer, ds, steps: int, tag: str):
+    """``steps`` of ``trainer.train_step_once`` under torch.profiler: wall
+    and device-busy ms/step, the busy share, the top device kernels and the
+    port's three kernels' share, on lines tagged ``tag``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from focnerf_tpu_torch.utils.measure import busy_ms, device_events
+
+    trainer.train_step_once(ds)  # warm-up
+    torch.cuda.synchronize()
+    with SMClocks() as clocks, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(steps):
             trainer.train_step_once(ds)
-        wall = (clock() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
     busy = busy_ms(prof)
     by_name = {}
     for name, ms in events:
         by_name[name] = by_name.get(name, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[profile] {steps} train steps under torch.profiler: wall {wall / steps:.2f} ms/step, device busy "
+    print(f"[{tag}] {steps} train steps under torch.profiler: wall {wall / steps:.2f} ms/step, device busy "
           f"{busy / steps:.2f} ms/step ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), "
-          f"{len(events) / steps:.0f} device events/step; {profiled_clocks.summary()}")
+          f"{len(events) / steps:.0f} device events/step; {clocks.summary()}")
     for name, ms in top:
-        print(f"[profile]   {ms / steps:8.3f} ms/step {ms / busy:6.1%}  {name[:110]}")
+        print(f"[{tag}]   {ms / steps:8.3f} ms/step {ms / busy:6.1%}  {name[:110]}")
     for key in ("composite_forward_kernel", "composite_backward_kernel", "table_grad_kernel"):
         ms = sum(v for k, v in by_name.items() if key in k)
-        print(f"[profile]   kernel {key}: {ms / steps:.4f} ms/step ({ms / busy:.2%} of device time)")
+        print(f"[{tag}]   kernel {key}: {ms / steps:.4f} ms/step ({ms / busy:.2%} of device time)")
 
 
 def prefix_in(s, G: int):
@@ -1208,10 +1345,14 @@ def phase_iterative_reference(trainer):
         raise AssertionError("iterative reference: card and CPU renders disagree")
 
 
-def phase_train_reference(trainer):
-    """One train step's loss and gradients on the card (kernels) and on the
-    CPU (plain versions), from the trained params and skip field, the same
-    batch and the same draws, in fp32."""
+def phase_train_reference(trainer, ds):
+    """Train steps' loss and gradients on the card (kernels) and on the CPU
+    (plain versions), from the trained params and skip field, the same batch
+    and the same draws, in fp32: the -O step; the uniform step with
+    importance upsampling (no -O); an -O2 step in a truncated c2f stage on a
+    gradient phase; the -O step on a patch-sampled batch of the training
+    scene; and the -O step with the TV term. Each launches each kernel once
+    on the card."""
     import dataclasses
 
     import numpy as np
@@ -1220,7 +1361,7 @@ def phase_train_reference(trainer):
     from focnerf_tpu_torch.core.camera import rand_poses
     from focnerf_tpu_torch.ops.occupancy import occupancy_bitfield, occupancy_skip_field
     from focnerf_tpu_torch.train.state import clone_params, param_leaves
-    from focnerf_tpu_torch.train.steps import occupancy_loss, step_draws
+    from focnerf_tpu_torch.train.steps import occupancy_loss, step_draws, uniform_loss, uniform_step_draws
 
     cfg32 = dataclasses.replace(trainer.cfg, compute_dtype=torch.float32)
     n, slab = 512, 64
@@ -1235,55 +1376,227 @@ def phase_train_reference(trainer):
         "ray_mask": torch.from_numpy(rng.uniform(size=n) < 0.7),
         "obj_feat": torch.from_numpy(rng.normal(size=144).astype(np.float32)),
     }
-    draws = step_draws(torch.Generator().manual_seed(3), cfg32, n, slab, "cpu")
+    ds.opt.patch_size = 8  # 16 patches of 8 x 8 of one view
+    patch = {k: v.cpu() for k, v in ds.train_batch(trainer.generator).items() if k != "view"}
+    ds.opt.patch_size = 1
+    patch = {k: v[:1024] if v.dim() and v.shape[0] == 4096 else v for k, v in patch.items()}
     skip = occupancy_skip_field(occupancy_bitfield(trainer.occupancy, trainer.density_thresh)).cpu()
-    kw = dict(dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps, slab=slab, skip_field=True)
-    out = {}
-    for where in ("cuda", "cpu"):
-        to = lambda t: t.to(where)  # noqa: E731
-        params = clone_params({k: [to(w) for w in v] if isinstance(v, list) else to(v)
-                               for k, v in trainer.state.params.items()}, requires_grad=True)
-        reset_counts()
-        loss, aux = occupancy_loss(params, cfg32, {k: to(v) for k, v in batch.items()}, to(skip),
-                                   {k: to(v) for k, v in draws.items()}, **kw)
-        loss.backward()
-        if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
-                                                     composite_rays_fused_backward=1, hashgrid_table_grad=1):
-            raise AssertionError(f"reference train step on the card launched {read_counts()}")
-        out[where] = (float(loss.detach()), [p.grad.cpu() for p in param_leaves(params)],
-                      float(aux["n_samples"].float().mean()))
-    (lg, gg, sg), (lc, gc, sc) = out["cuda"], out["cpu"]
-    loss_rel = abs(lg - lc) / abs(lc)
-    grad_rel = max(float((a - b).norm() / b.norm().clamp(min=1e-30)) for a, b in zip(gg, gc))
-    print(f"[reference] train step, {n} rays x slab {slab}, fp32, card vs CPU: loss {lg:.6g} vs {lc:.6g} "
-          f"(rel {loss_rel:.3g}, limit 1e-4), worst gradient rel L2 error {grad_rel:.3g} (limit 1e-2), "
-          f"samples/ray {sg:.2f} vs {sc:.2f}")
-    # sums in other orders, atomics and CUDA vs libm exp/log; a walk landing
-    # on a cell boundary may flip cells on one side and move that ray's samples
-    if not (loss_rel <= 1e-4 and grad_rel <= 1e-2):
-        raise AssertionError("card and CPU train steps disagree")
+    occ_kw = dict(dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps, slab=slab, skip_field=True)
+    uni = dataclasses.replace(cfg32, stochastic_corners=0, stochastic_min_size=0)  # no -O: the exact encode
+    o2 = dataclasses.replace(cfg32, active_levels=8, grad_levels=(1, 3, 5, 7))  # stage 8, phase 1 of 2
+    gen = lambda: torch.Generator().manual_seed(3)  # noqa: E731
+    cases = {
+        "-O step": (cfg32, batch, step_draws(gen(), cfg32, n, slab, "cpu"), occ_kw),
+        "uniform step, 64 + 32 importance samples": (
+            uni, batch, uniform_step_draws(gen(), uni, n, 64, 32, "cpu"), dict(num_steps=64, upsample_steps=32)),
+        "-O2 step, c2f stage of 8 levels, phase 1 (levels 1, 3, 5, 7)": (
+            o2, batch, step_draws(gen(), o2, n, slab, "cpu"), occ_kw),
+        "-O step on a patch-sampled batch (16 patches of 8 x 8)": (
+            cfg32, patch, step_draws(gen(), cfg32, 1024, slab, "cpu"), occ_kw),
+        "-O step with TV 1e-2": (cfg32, batch, step_draws(gen(), cfg32, n, slab, "cpu", tv=True),
+                                 dict(occ_kw, tv_weight=1e-2)),
+    }
+    for label, (cfg, b, draws, kw) in cases.items():
+        out = {}
+        for where in ("cuda", "cpu"):
+            to = lambda t: t.to(where)  # noqa: E731
+            params = clone_params({k: [to(w) for w in v] if isinstance(v, list) else to(v)
+                                   for k, v in trainer.state.params.items()}, requires_grad=True)
+            tb, td = {k: to(v) for k, v in b.items()}, {k: to(v) for k, v in draws.items()}
+            reset_counts()
+            if "num_steps" in kw:
+                loss, _ = uniform_loss(params, cfg, tb, td, **kw)
+            else:
+                loss, _ = occupancy_loss(params, cfg, tb, to(skip), td, **kw)
+            loss.backward()
+            if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
+                                                         composite_rays_fused_backward=1, hashgrid_table_grad=1):
+                raise AssertionError(f"reference {label} on the card launched {read_counts()}")
+            out[where] = (float(loss.detach()), [p.grad.cpu() for p in param_leaves(params)])
+        (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+        loss_rel = abs(lg - lc) / abs(lc)
+        grad_rel = max(float((a - b_).norm() / b_.norm().clamp(min=1e-30)) for a, b_ in zip(gg, gc))
+        grid = gc[0].reshape(-1, cfg.level_dim)
+        print(f"[reference] train step: {label}, {b['rays_o'].shape[0]} rays, fp32, card vs CPU: loss {lg:.6g} vs "
+              f"{lc:.6g} (rel {loss_rel:.3g}, limit 1e-4), worst gradient rel L2 error {grad_rel:.3g} (limit 1e-2); "
+              f"table rows with a gradient: {int((grid != 0).any(-1).sum())}")
+        # sums in other orders, atomics and CUDA vs libm exp/log; a walk landing
+        # on a cell boundary may flip cells on one side and move that ray's samples
+        if not (loss_rel <= 1e-4 and grad_rel <= 1e-2):
+            raise AssertionError(f"card and CPU train steps disagree: {label}")
+        if cfg is o2:  # the table rows outside the phase's levels get exactly 0, on the card too
+            spec = cfg.grid_spec
+            for lvl in range(spec.num_levels):
+                blk = gg[0][spec.offsets[lvl]:spec.offsets[lvl + 1]]
+                if (lvl in cfg.grad_levels) != bool((blk != 0).any()):
+                    raise AssertionError(f"-O2 reference: level {lvl}'s table gradient, live {lvl in cfg.grad_levels}")
+
+
+def uniform_scene(work: str) -> str:
+    """Phase 5's training scene with its val split cut to one view: the
+    train split, its sidecar and the val images linked, a val JSON of the
+    first val frame."""
+    src, scene = os.path.join(work, "train_scene"), os.path.join(work, "uniform_scene")
+    os.makedirs(os.path.join(scene, "yolo"))
+    for rel in ("train", "val", "transforms_train.json", "yolo/train.npz", "yolo/val.npz"):
+        os.symlink(os.path.join(src, rel), os.path.join(scene, rel))
+    with open(os.path.join(src, "transforms_val.json")) as f:
+        val = json.load(f)
+    val["frames"] = val["frames"][:1]
+    with open(os.path.join(scene, "transforms_val.json"), "w") as f:
+        json.dump(val, f)
+    return scene
+
+
+def phase_uniform_train(work: str, dev, smi: str):
+    """``main_nerf`` without ``-O`` at full width on phase 5's scene (one
+    val view): uniform samples with importance upsampling, the error map and
+    the TV term, UNIFORM_ITERS steps, then its eval and its mesh. Each
+    backward kernel launches once a step and the composite forward once a
+    step plus once per chunk of the eval view; the loss must halve, the val
+    PSNR be finite, the error map leave its 0.1 fill on exactly the views
+    the batches drew and the OBJ have faces. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps import main_nerf
+    from focnerf_tpu_torch.data import provider
+    from focnerf_tpu_torch.models.nerf import density_fn
+
+    scene, ws = uniform_scene(work), os.path.join(work, "uniform_ws")
+    argv = [scene, "--workspace", ws, "--disable_yolo", "--iters", str(UNIFORM_ITERS), "--num_steps",
+            str(UNIFORM_STEPS[0]), "--upsample_steps", str(UNIFORM_STEPS[1]), "--error_map", "--tv_weight",
+            str(UNIFORM_TV), "--ckpt_interval", "10"]
+    datasets, real = [], provider.NeRFDataset
+
+    class Kept(real):  # the train split, whose error map the trainer updates, and its batches' views
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.views = []
+            datasets.append(self)
+
+        def train_batch(self, generator, draws=None):
+            batch = super().train_batch(generator, draws)
+            self.views.append(batch["view"])
+            return batch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    provider.NeRFDataset = Kept
+    t0 = time.time()
+    try:
+        with SMClocks() as clocks:
+            (trainer,) = main_nerf.main(argv, device=dev)
+            torch.cuda.synchronize()
+    finally:
+        provider.NeRFDataset = real
+    wall = time.time() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(ws, "train_times.txt")) as f:
+        train_s = float(f.read().split(":")[1].split("s")[0])
+    losses = np.asarray(trainer.step_losses)
+    steps = len(losses)
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    psnr = trainer.last_eval_results["PSNR"]
+    em = datasets[0].error_map
+    moved = (em != 0.1).any(-1).cpu()
+    trained = torch.zeros_like(moved)
+    trained[torch.stack(datasets[0].views).cpu()] = True
+    from focnerf_tpu_torch.utils.mesh_extract import extract_fields
+
+    params, cfg = trainer.state.ema_params, trainer.cfg
+    sigma_max = float(extract_fields(lambda x: density_fn(params, cfg, x)[0], cfg.bound, 64, dev).max())
+    mesh = os.path.join(f"{ws}_{OBJECT}", "meshes", f"ngp_{trainer.epoch}.obj")
+    faces = 0
+    if os.path.exists(mesh):
+        with open(mesh) as f:
+            faces = sum(line.startswith("f ") for line in f)
+    samples = sum(UNIFORM_STEPS)
+    eval_chunks = math.ceil(RES * RES / CHUNK)
+    print(f"[uniform] main_nerf (no -O) --num_steps {UNIFORM_STEPS[0]} --upsample_steps {UNIFORM_STEPS[1]} "
+          f"--error_map --tv_weight {UNIFORM_TV} --iters {UNIFORM_ITERS}: {steps} steps of 4096 rays x {samples} "
+          f"samples ({4096 * samples} samples/step) in {train_s:.2f} s of training ({wall:.2f} s with loading, "
+          f"the eval and the mesh): {train_s / steps * 1e3:.2f} ms/step, {4096 * steps / train_s:.0f} rays/s, peak "
+          f"memory {peak:.3f} GiB ({smi}); {clocks.summary()}")
+    print(f"[uniform] loss first 20 steps {first:.5f}, last 20 {last:.5f}; val PSNR {psnr:.3f} dB (1 view); error "
+          f"map moved on {int(moved.sum())} of {em.shape[0]} views, {int(trained.sum())} of them trained (mean "
+          f"{float(em.mean()):.4f}); mesh {faces} faces at density {trainer.density_thresh} (max density on a 64^3 "
+          f"grid {sigma_max:.2f}); launches {launches}")
+    want = dict(composite_rays_fused=steps + eval_chunks, composite_rays_resume=0,
+                composite_rays_fused_backward=steps, hashgrid_table_grad=steps)
+    if launches != want:
+        raise AssertionError(f"uniform training launched {launches}, want {want}")
+    if steps != UNIFORM_ITERS or not np.isfinite(losses).all() or not last < 0.5 * first:
+        raise AssertionError(f"uniform training did not learn: {steps} steps, loss {first} -> {last}")
+    if not np.isfinite(psnr) or not torch.equal(moved, trained) or faces == 0:
+        raise AssertionError(f"uniform training: val PSNR {psnr}, error map moved on views {moved.nonzero()} "
+                             f"(trained {trained.nonzero()}), {faces} faces")
+    profiled_steps(trainer, datasets[0], 5, "uniform-profile")
+    return launches
 
 
 def phase_second_object(work: str, dev):
-    """The composition's second object: ``main_nerf -O`` at full width on a
+    """The composition's second object: ``main_nerf -O2`` at full width on a
     scene with the training scene's cameras that holds only BALL, whose
-    sidecar gives every view the constant feature 0.5 in all 144 entries."""
+    sidecar gives every view the constant feature 0.5 in all 144 entries:
+    its c2f stages (8 levels, then 12, then 16) end at SECOND_C2F's steps,
+    epoch boundaries, so the epoch times give each stage's ms/step; with
+    ``--grad_level_phases 2`` each step's table gradient covers half the
+    stage's levels. The table-gradient kernel must launch once a step, on
+    the columns of that step's level subset. Returns (workspace, launches)."""
     import torch
 
     from focnerf_tpu_torch.apps import main_nerf
     from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.ops import hashgrid as thg
 
     scene, ws = os.path.join(work, f"{SECOND}_scene"), os.path.join(work, f"{SECOND}_ws")
-    argv = [scene, "-O", "--workspace", ws, "--disable_yolo", "--iters", str(SECOND_ITERS), "--mesh_res", "0",
-            "--ckpt_interval", "10"]
+    c2f = ",".join(f"{end}:{lv}" for end, lv in SECOND_C2F)
+    argv = [scene, "-O2", "--c2f", c2f, "--workspace", ws, "--disable_yolo", "--iters", str(SECOND_ITERS),
+            "--mesh_res", "0", "--ckpt_interval", "10"]
     write_training_scene(scene, parse_options(argv).scale, obj=SECOND, spheres=(BALL,), feat=0.5)
+    columns, kernel = [], thg.hashgrid_table_grad
+
+    def capture(rows, weights, g, cols, n_rows, level_dim=None):
+        columns.append(rows.shape[1])
+        return kernel(rows, weights, g, cols, n_rows, level_dim=level_dim)
+
+    capture.launches = 0  # the wrapper counts on whatever the module's name holds
+    reset_counts()
+    thg.hashgrid_table_grad = capture
     t0 = time.time()
-    (trainer,) = main_nerf.main(argv, device=dev)
-    torch.cuda.synchronize()
-    print(f"[compose] second object '{SECOND}' (radius {BALL[1]} at {BALL[0]}): main_nerf -O --iters {SECOND_ITERS} "
-          f"in {time.time() - t0:.1f} s with loading and the final eval, loss last 50 steps "
-          f"{sum(trainer.step_losses[-50:]) / 50:.5f}, val PSNR {trainer.last_eval_results['PSNR']:.3f} dB")
-    return ws
+    try:
+        (trainer,) = main_nerf.main(argv, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        thg.hashgrid_table_grad = kernel
+    kernel.launches += capture.launches
+    launches = read_counts()
+    with open(os.path.join(f"{ws}_{SECOND}", "log_ngp.txt")) as f:
+        epochs = [float(line.split("time=")[1].rstrip("s\n")) for line in f if line.startswith("[epoch ")]
+    per_epoch = SECOND_ITERS // len(epochs)
+    stages, start = [], 0
+    for end, lv in list(SECOND_C2F) + [(SECOND_ITERS, 16)]:
+        spans = epochs[start // per_epoch:end // per_epoch]
+        stages.append(f"{lv} levels (steps {start}-{end - 1}): {sum(spans) / (end - start) * 1e3:.2f} ms/step")
+        start = end
+    # K = 1 corners: a level subset of n levels has n columns
+    want_j = [len([lv for lv in range(active) if lv % 2 == step % 2])
+              for step in range(SECOND_ITERS)
+              for active in [next((lv for end, lv in SECOND_C2F if step < end), 16)]]
+    print(f"[compose] second object '{SECOND}' (radius {BALL[1]} at {BALL[0]}): main_nerf -O2 --c2f {c2f} "
+          f"(grad_level_phases {trainer.grad_level_phases}) --iters {SECOND_ITERS} in {time.time() - t0:.1f} s with "
+          f"loading and the final eval; stage boundaries crossed at steps {[end for end, _ in SECOND_C2F]}; "
+          + "; ".join(stages) + f" (epoch times, the first with its warm-up); loss last 50 steps "
+          f"{sum(trainer.step_losses[-50:]) / 50:.5f}, val PSNR {trainer.last_eval_results['PSNR']:.3f} dB; table "
+          f"gradient columns per launch {sorted(set(columns))}; launches {launches}")
+    if launches["hashgrid_table_grad"] != SECOND_ITERS or columns != want_j:
+        raise AssertionError(f"-O2: {len(columns)} table-gradient launches with columns {columns}, want {want_j}")
+    if launches["composite_rays_fused_backward"] != SECOND_ITERS:
+        raise AssertionError(f"-O2: composite backward launched {launches}, want {SECOND_ITERS}")
+    return ws, launches
 
 
 def compose_layout(work: str, scale: float):
@@ -2162,6 +2475,7 @@ def main() -> int:
     cfg = parse_options(["scene", "-O"]).nerf_config()  # the training path's model
     kernels = phase("kernels", lambda: [*phase_composite_kernel(), phase_composite_backward_kernel(),
                                         phase_table_grad_kernel(cfg)])
+    phase("kernels at the uniform and -O2 shapes", phase_uniform_shapes, cfg)
     work = os.path.join(HERE, "workspace_chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     dev = torch.device("cuda")
@@ -2171,11 +2485,12 @@ def main() -> int:
     ds = train_dataset(os.path.join(work, "train_scene"), dev)
     phase("train profile", phase_train_profile, trainer, ds, dev)
     phase("backward mask", phase_backward_mask, trainer, ds, dev)
-    del ds
     phase("render reference", phase_reference, params, cfg, bits)
     phase("iterative reference", phase_iterative_reference, trainer)
-    phase("train reference", phase_train_reference, trainer)
-    phase("second object", phase_second_object, work, dev)
+    phase("train reference", phase_train_reference, trainer, ds)
+    del ds
+    uniform_launches = phase("uniform training", phase_uniform_train, work, dev, smi)
+    _, o2_launches = phase("second object", phase_second_object, work, dev)
     composed, per_sample, root, scene = phase("composition", phase_composition, work, dev, smi)
     loaded, march, pose = phase("composition reference", phase_composition_reference, root, scene, dev)
     phase("compose profile", phase_compose_profile, loaded, march, pose)
@@ -2194,7 +2509,8 @@ def main() -> int:
              "launches_edit": composed["editable"][k["name"]],
              "launches_baked_compose": baked_runs["combined"][k["name"]],
              "launches_baked_edit": baked_runs["editable"][k["name"]],
-             "launches_voxel": voxel_launches[k["name"]]} for k in kernels]
+             "launches_voxel": voxel_launches[k["name"]], "launches_uniform": uniform_launches[k["name"]],
+             "launches_o2": o2_launches[k["name"]]} for k in kernels]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -5,15 +5,23 @@ Twin of focnerf_tpu/apps/main_nerf.py:
   - training (:50-135), per detected object: the masked train/val splits,
     the obj-feat sidecar (``<workspace>/obj_feats/<obj>.npz``), a
     ``Trainer`` in ``<workspace>_<obj>``, ``train``, a final ``evaluate``
-    when the val split exists, mesh export (not ported: it warns), and
-    ``<workspace>/train_times.txt``;
+    when the val split exists, the mesh export (``--mesh_res``, an OBJ in
+    ``<workspace>_<obj>/meshes``), and ``<workspace>/train_times.txt``;
   - ``--test`` (:138-178): per object with a checkpoint, the test split with
     its object features synthesized from the saved training-view features,
     rendered to ``<workspace>_<obj>/results``.
 
 Usage:
   python -m focnerf_tpu_torch.apps.main_nerf <scene> -O --workspace ws --iters 30000
+  python -m focnerf_tpu_torch.apps.main_nerf <scene> -O2 --workspace ws --iters 30000
+  python -m focnerf_tpu_torch.apps.main_nerf <scene> --upsample_steps 64 --error_map --workspace ws
   python -m focnerf_tpu_torch.apps.main_nerf <scene> --test -O --workspace ws
+
+Without ``-O`` the trainer samples uniformly (``--num_steps``, plus
+``--upsample_steps`` importance samples); ``-O2`` adds the coarse-to-fine
+stages (``--c2f``) and the alternating level-subset backward
+(``--grad_level_phases``) to ``-O``; ``--error_map``, ``--patch_size`` and
+``--tv_weight`` work on either path.
 
 Training evaluates the val split with ``--eval_renderer`` (default ``iter``,
 the iterative worklist renderer; ``iter_dev`` its drain; ``oneshot`` the
@@ -85,8 +93,7 @@ def train_one_object(opt: Options, obj: str, sidecar_train, sidecar_val, device)
         color_space=opt.color_space, tv_weight=opt.tv_weight, use_checkpoint=opt.ckpt,
         seed=opt.seed, rand_pose=opt.rand_pose, eval_interval=opt.eval_interval,
         ckpt_interval=opt.ckpt_interval, eval_save_images=opt.eval_save_images,
-        eval_renderer=opt.eval_renderer, error_map=opt.error_map, patch_size=opt.patch_size,
-        device=device,
+        eval_renderer=opt.eval_renderer, device=device,
     )
     trainer.check_eval_renderer()  # refuse before training, not after it
     steps_per_epoch = max(train_ds.n_views, 1)

@@ -3,10 +3,11 @@
 Twin of focnerf_tpu/config.py: the same ``Options`` fields and flags (so a
 command line written for the JAX package parses here), the same ``-O`` and
 ``-O2`` mapping (config.py:347-373), and ``nerf_config``/``dataset_options``
-returning the port's types. Options of features the port has not ported yet
-(error-map and patch sampling, c2f, gradient-level phases, TV, rand-pose,
-the voxel families, D-NeRF) are parsed and carried; the port's trainer
-refuses those it cannot honour, and ``main_nerf`` says so for the two it
+returning the port's types. ``-O2`` keeps JAX's override semantics: an
+explicit ``--grad_level_phases 0`` becomes 2 and an empty ``--c2f`` the
+default schedule (with at least 12 levels). Options of features the port
+has not ported yet (rand-pose, D-NeRF) are parsed and carried; the port's
+trainer refuses rand-pose, and ``main_nerf`` says so for the two options it
 ignores (``--grid_int8``, ``--no-preload``).
 """
 

@@ -6,10 +6,12 @@ slerp test path, per-object masking from the YOLO sidecar (aligned to
 frames by path), intrinsics from fl_x/fl_y or camera angles, ``eval_view``
 and, for training, ``train_batch``: the images, masks and object features
 are preloaded on the device and a batch (one random view, ``num_rays``
-uniform pixels, their rays and GT) is gathered there from a
-``torch.Generator``, as ``make_batch_assemble`` does. The host pipeline
-(``--no-preload``) and the error-map, patch and rand-pose batches are not
-ported.
+pixels drawn uniformly, as ``patch_size`` patches, or by the view's error
+map, their rays and GT) is gathered there from a ``torch.Generator``, as
+``make_batch_assemble`` does. With ``error_map`` the train split keeps the
+per-view map ``error_map`` [n_views, 128 * 128], filled with 0.1, which the
+trainer updates after every step. The host pipeline (``--no-preload``) and
+the rand-pose batches are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from focnerf_tpu_torch.core.camera import nerf_matrix_to_ngp
-from focnerf_tpu_torch.core.rays import get_rays, sample_ray_indices
+from focnerf_tpu_torch.core.rays import ERROR_MAP_RES, get_rays, index_draws, sample_ray_indices
 from focnerf_tpu_torch.data.png import read_image
 
 
@@ -36,9 +38,8 @@ class DatasetOptions:
     num_rays: int = 4096
     preload_dtype: str = "float32"  # or "float16" (-O)
     edit_x: float = 0.0  # camera x-shift for editing previews
-    # carried for the trainer, which refuses both (not ported yet)
-    error_map: bool = False
-    patch_size: int = 1
+    error_map: bool = False  # error-map importance sampling (train split)
+    patch_size: int = 1  # > 1: sample patch_size x patch_size patches
 
 
 def _load_image(path: str) -> np.ndarray:
@@ -195,6 +196,9 @@ class NeRFDataset:
         cx = t["cx"] / opt.downscale if "cx" in t else self.W / 2
         cy = t["cy"] / opt.downscale if "cy" in t else self.H / 2
         self.intrinsics = np.array([fl_x, fl_y, cx, cy], np.float32)
+        self.error_map = None
+        if opt.error_map and split in ("train", "all", "trainval"):
+            self.error_map = torch.full((self.n_views, ERROR_MAP_RES**2), 0.1, device=self.device)
 
     def _apply_masks(self, images, mask_details, root):
         """Object mask -> alpha channel; per-view features from the sidecar."""
@@ -225,16 +229,25 @@ class NeRFDataset:
         self.masks = np.stack(msks)  # [V, H, W] bool
         return masked
 
-    def train_batch(self, generator: torch.Generator) -> dict:
+    def train_batch(self, generator: torch.Generator, draws: Optional[dict] = None) -> dict:
         """One training batch drawn from ``generator`` (on the dataset's
-        device): a random view and ``num_rays`` uniform pixels of it ->
-        dict(rays_o, rays_d [N, 3], pixels [N, C] f32, ray_mask [N] bool when
-        the split has masks, obj_feat [F] when it has features, view).
-        Everything stays on the device: no host sync."""
+        device): a random view and ``num_rays`` pixels of it (uniform, in
+        patches, or by the view's error map) -> dict(rays_o, rays_d [N, 3],
+        pixels [N, C] f32, ray_mask [N] bool when the split has masks,
+        obj_feat [F] when it has features, view, and inds_coarse [N] with an
+        error map). ``draws``: {"view": [1], then ``index_draws``'s} instead
+        of drawing them. Everything stays on the device: no host sync."""
         if self.images is None:
             raise ValueError(f"split {self.split!r} has no images to train on")
-        view = torch.randint(0, self.n_views, (1,), generator=generator, device=self.device)
-        inds = sample_ray_indices(generator, self.H, self.W, self.opt.num_rays, self.device)
+        if draws is None:
+            draws = {"view": torch.randint(0, self.n_views, (1,), generator=generator, device=self.device)}
+            draws.update(index_draws(generator, self.H, self.W, self.opt.num_rays,
+                                     error_map=self.error_map is not None,
+                                     patch_size=self.opt.patch_size, device=self.device))
+        view = draws["view"]
+        em = None if self.error_map is None else self.error_map.index_select(0, view)[0]
+        inds, inds_coarse = sample_ray_indices(self.H, self.W, self.opt.num_rays, draws, error_map=em,
+                                               patch_size=self.opt.patch_size)
         flat = view * (self.H * self.W) + inds  # rows of the [V * H * W] pixel stack
         rays = get_rays(self.poses_dev.index_select(0, view)[0], self.intrinsics, self.H, self.W,
                         inds=inds, device=self.device)
@@ -248,6 +261,8 @@ class NeRFDataset:
             batch["ray_mask"] = self.masks_dev.reshape(-1)[flat]
         if self.obj_feats_dev is not None:
             batch["obj_feat"] = self.obj_feats_dev.index_select(0, view)[0]
+        if inds_coarse is not None:
+            batch["inds_coarse"] = inds_coarse
         return batch
 
     def eval_view(self, view: int) -> dict:

@@ -16,7 +16,7 @@ import torch
 
 from focnerf_tpu_torch.models.mlp import mlp_apply, mlp_init
 from focnerf_tpu_torch.ops.activation import trunc_exp
-from focnerf_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode, hashgrid_init
+from focnerf_tpu_torch.ops.hashgrid import HashGridSpec, hashgrid_encode, hashgrid_encode_c2f, hashgrid_init
 from focnerf_tpu_torch.ops.sh import sh_encode
 
 Params = Dict[str, Any]
@@ -27,8 +27,10 @@ class NeRFConfig:
     """Same fields as the JAX NeRFConfig (so ``model_config.json`` round-trips);
     ``compute_dtype`` is a torch dtype. ``stochastic_corners`` and
     ``stochastic_min_size`` shape the training encode (``density_fn`` with
-    ``u``); ``grad_levels`` and ``active_levels`` (``-O2``) are carried but
-    not ported yet."""
+    ``u``). ``-O2``'s levers, set per step by the trainer: ``grad_levels``
+    (the levels whose table rows get a gradient) and ``active_levels`` (a
+    coarse-to-fine stage: only the first N levels are encoded; 0 = all).
+    Eval paths use the full config."""
 
     bound: float = 1.0
     num_levels: int = 16
@@ -64,6 +66,17 @@ class NeRFConfig:
                 spec, stochastic_k=self.stochastic_corners,
                 stochastic_min_size=self.stochastic_min_size,
             )
+        if self.grad_levels is not None:
+            spec = dataclasses.replace(spec, grad_levels=tuple(self.grad_levels))
+        return spec
+
+    @property
+    def encode_spec(self) -> HashGridSpec:
+        """The spec ``density_fn`` encodes with: the stage's truncated one
+        under coarse-to-fine, which sizes the stochastic draws ``u``."""
+        spec = self.grid_spec
+        if 0 < self.active_levels < spec.num_levels:
+            spec = spec.truncate(self.active_levels)
         return spec
 
     @property
@@ -124,9 +137,10 @@ def density_fn(params: Params, cfg: NeRFConfig, x: torch.Tensor, u: Optional[tor
     """x [..., 3] in [-bound, bound] -> (sigma [...], geo_feat [..., geo]).
 
     ``u`` (training) holds the stochastic-corner draws of the encode,
-    [x.numel() // 3, n_stoch, K, 3]; without it the encode is exact."""
+    [x.numel() // 3, n_stoch, K, 3] of ``cfg.encode_spec``; without it the
+    encode is exact. ``cfg.active_levels`` encodes a coarse-to-fine stage."""
     x01 = (x + cfg.bound) / (2.0 * cfg.bound)
-    feats = hashgrid_encode(params["grid"], x01, cfg.grid_spec, u)
+    feats = hashgrid_encode_c2f(params["grid"], x01, cfg.grid_spec, cfg.active_levels, u)
     h = mlp_apply(params["sigma_net"], feats, cfg.compute_dtype)
     return trunc_exp(h[..., 0]), h[..., 1:]
 

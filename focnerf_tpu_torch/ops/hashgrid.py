@@ -25,7 +25,17 @@ The table gradient is ``HashGridEncode``'s backward, as the JAX custom VJP's
 ``index_add_``; on CUDA tensors it launches ``csrc/hashgrid_bwd.cu`` (the
 port of ``hashgrid_pallas.py::hashgrid_bwd_level``, all levels in one
 launch, a warp's duplicate rows summed before its atomics) or raises.
-Coarse-to-fine, ``grad_levels`` and the TV loss wait.
+
+``-O2``'s two levers and the TV term, as in the JAX twin:
+
+  - ``HashGridSpec.grad_levels``: the backward scatters only the columns of
+    these levels, so the kernel runs on the subset and every other level's
+    rows get exactly 0 (the forward is unchanged);
+  - ``HashGridSpec.truncate`` and ``hashgrid_encode_c2f``: a coarse-to-fine
+    stage encodes the first ``active`` levels from a prefix slice of the
+    table and zero-fills the fine levels' features;
+  - ``hashgrid_tv_loss``: the table's total variation at sampled points,
+    plain torch (a gather; no kernel computes it).
 """
 
 from __future__ import annotations
@@ -56,6 +66,9 @@ class HashGridSpec:
     # at least stochastic_min_size rows (0: hashed only); 0 = exact
     stochastic_k: int = 0
     stochastic_min_size: int = 0
+    # the levels whose table rows get a gradient (None: all); -O2's
+    # alternating phases train one subset a step
+    grad_levels: Optional[Tuple[int, ...]] = None
     resolutions: Tuple[int, ...] = ()
     offsets: Tuple[int, ...] = ()  # num_levels + 1 entries, in table rows
     hashed: Tuple[bool, ...] = ()
@@ -98,6 +111,19 @@ class HashGridSpec:
             resolutions=tuple(resolutions),
             offsets=tuple(offsets),
             hashed=tuple(hashed),
+        )
+
+    def truncate(self, active: int) -> "HashGridSpec":
+        """The spec of the first ``active`` levels (a coarse-to-fine stage).
+        Offsets are cumulative, so its table is ``table[:sub.table_rows]``."""
+        if not 0 < active <= self.num_levels:
+            raise ValueError(f"active={active} outside [1, {self.num_levels}]")
+        gl = self.grad_levels
+        if gl is not None:
+            gl = tuple(lvl for lvl in gl if lvl < active) or None
+        return dataclasses.replace(
+            self, num_levels=active, resolutions=self.resolutions[:active],
+            offsets=self.offsets[: active + 1], hashed=self.hashed[:active], grad_levels=gl,
         )
 
     @property
@@ -235,15 +261,26 @@ class HashGridEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, x01, u, spec):
         out, rows, weights = _encode(table, x01, spec, u, residuals=True)
+        cols = col_levels(spec, u is not None)
+        if spec.grad_levels is not None:
+            # the backward reads only the live levels' columns (JAX's col_sel)
+            live = tuple(j for j, lvl in enumerate(cols) if lvl in spec.grad_levels)
+            sel = _device_tuple(live, torch.int64, rows.device)
+            rows = rows.index_select(1, sel)
+            weights = weights.index_select(1, sel)
+            cols = tuple(cols[j] for j in live)
         ctx.save_for_backward(rows, weights)
-        ctx.cols = col_levels(spec, u is not None)
+        ctx.cols = cols
         ctx.n_rows = table.shape[0]
+        ctx.level_dim = spec.level_dim
         return out
 
     @staticmethod
     def backward(ctx, g):
         rows, weights = ctx.saved_tensors
-        d_table = hashgrid_table_grad(rows, weights, g, ctx.cols, ctx.n_rows)
+        if not ctx.cols:  # no live level: every row's gradient is 0
+            return torch.zeros((ctx.n_rows, ctx.level_dim), device=g.device), None, None, None
+        d_table = hashgrid_table_grad(rows, weights, g, ctx.cols, ctx.n_rows, level_dim=ctx.level_dim)
         return d_table, None, None, None
 
 
@@ -267,28 +304,73 @@ def hashgrid_encode(
     return out.reshape(*prefix, spec.output_dim)
 
 
+def hashgrid_encode_c2f(
+    table: torch.Tensor, x01: torch.Tensor, spec: HashGridSpec, active_levels: int,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Coarse-to-fine encode: only the first ``active_levels`` levels, from
+    the table's prefix slice, with the fine levels' feature slots 0 (0 or
+    at least ``num_levels``: the full encode). ``u`` is sized by the
+    truncated spec's stochastic levels. The fine rows get exactly 0 of
+    gradient (the cotangent of the slice)."""
+    if active_levels <= 0 or active_levels >= spec.num_levels:
+        return hashgrid_encode(table, x01, spec, u)
+    sub = spec.truncate(active_levels)
+    out = hashgrid_encode(table[: sub.table_rows], x01, sub, u)
+    pad = out.new_zeros((*out.shape[:-1], spec.output_dim - sub.output_dim))
+    return torch.cat([out, pad], dim=-1)
+
+
+def hashgrid_tv_loss(table: torch.Tensor, x01: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
+    """Total variation of the table at sampled points x01 [..., D]
+    (gridencoder.cu ``kernel_grad_tv``): per level and axis, the
+    root-sum-square over channels of the base vertex's feature difference
+    to its +1 and -1 neighbours (where they exist), summed, divided by 2D
+    and averaged over points. Autograd credits both vertices."""
+    x = x01.reshape(-1, spec.input_dim).float()
+    D = spec.input_dim
+    total = table.new_zeros((), dtype=torch.float32)
+    for lvl in range(spec.num_levels):
+        res = spec.resolutions[lvl]
+        pos_grid = torch.floor(x * _level_scale(spec, lvl) + 0.5).to(torch.int64)
+        v0 = table[_coords_to_rows(pos_grid, spec, lvl)].float()
+        for d in range(D):
+            cur = pos_grid[:, d]
+            for side in (+1, -1):
+                ok = (cur < res) if side > 0 else (cur > 0)
+                moved = cur + 1 if side > 0 else torch.clamp(cur, min=1) - 1
+                nb = pos_grid.clone()
+                nb[:, d] = torch.where(ok, moved, cur)
+                vn = table[_coords_to_rows(nb, spec, lvl)].float()
+                e = torch.sqrt(((v0 - vn) ** 2).sum(-1) + 1e-9)
+                total = total + torch.where(ok, e, torch.zeros_like(e)).sum()
+    return total / (2 * D) / x.shape[0]
+
+
 @functools.lru_cache(maxsize=None)
-def _col_level_tensor(cols: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    return torch.tensor(cols, dtype=torch.int32, device=device)
+def _device_tuple(values: Tuple[int, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A constant tuple as a tensor on ``device``, copied there once."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def hashgrid_table_grad(
-    rows: torch.Tensor, weights: torch.Tensor, g: torch.Tensor, cols: Tuple[int, ...], n_rows: int
+    rows: torch.Tensor, weights: torch.Tensor, g: torch.Tensor, cols: Tuple[int, ...], n_rows: int,
+    level_dim: Optional[int] = None,
 ) -> torch.Tensor:
     """d_table [n_rows, C] f32: ``d_table[rows[n, j]] += weights[n, j] *
     g[n, cols[j]*C : cols[j]*C + C]`` for every point n and packed column j.
 
     rows [N, J] int32, weights [N, J] f32, g [N, L*C] the output cotangent
-    (cast to fp32), ``cols`` the level of each column (``col_levels``).
-    Rows nothing touches stay exactly 0. CPU tensors: ``index_add_``. CUDA
-    tensors: the scatter kernel, one launch counted in
-    ``hashgrid_table_grad.launches``.
+    (cast to fp32), ``cols`` the level of each column (``col_levels``, or
+    the live levels' columns of it), ``level_dim`` C (default: g's width
+    over the levels up to the last in ``cols``). Rows nothing touches stay
+    exactly 0. CPU tensors: ``index_add_``. CUDA tensors: the scatter
+    kernel, one launch counted in ``hashgrid_table_grad.launches``.
     """
     n, J = rows.shape
-    L = max(cols) + 1
-    C = g.shape[-1] // L
-    g = g.reshape(n, L * C).float().contiguous()
-    col_level = _col_level_tensor(tuple(cols), rows.device)
+    C = level_dim if level_dim is not None else g.shape[-1] // (max(cols) + 1)
+    g = g.reshape(n, -1).float().contiguous()
+    col_level = _device_tuple(tuple(cols), torch.int32, rows.device)
     if not rows.is_cuda:
         if rows.device.type != "cpu":
             raise ValueError(f"hashgrid_table_grad: unsupported device {rows.device}")

@@ -2,8 +2,12 @@
 
 Twin of focnerf_tpu/render/renderer.py:
   - ``render_rays``: uniform ``num_steps`` samples in [near, far]
-    (nerf/renderer.py:126-238), composited through the fused kernel with
-    no early exit; importance upsampling comes later;
+    (nerf/renderer.py:126-238), with ``perturb`` jittered by the draws
+    ``z_noise`` [N, num_steps]; with ``upsample_steps`` a coarse density
+    pass without gradients, whose weights ``sample_pdf`` turns into that
+    many importance samples (the draws ``pdf_u``, or midpoint quantiles
+    without ``perturb``), merged and sorted; composited through the fused
+    kernel with no early exit;
   - ``render_rays_occupancy``: occupancy-bitfield marching (the ladder, or
     with ``occ_skip`` the sphere-trace skip walk) into a fixed [N, slab]
     slab, one batched field evaluation, early-terminated compositing through
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from focnerf_tpu_torch.core.geometry import near_far_from_aabb, sph_from_ray
@@ -29,7 +34,7 @@ from focnerf_tpu_torch.models.nerf import (
     density_fn,
     encode_objfeat,
 )
-from focnerf_tpu_torch.ops.composite import composite_rays_fused
+from focnerf_tpu_torch.ops.composite import composite_rays_fused, composite_weights
 from focnerf_tpu_torch.ops.marching import march_rays, march_rays_skip
 
 
@@ -59,6 +64,41 @@ def _background(params, cfg: NeRFConfig, rays_o, rays_d, bg_color):
     return 1.0 if bg_color is None else bg_color
 
 
+def _unit_linspace(n: int, device) -> torch.Tensor:
+    """linspace(0, 1, n) in fp32 as jnp.linspace computes it: i times the
+    fp32 reciprocal of n - 1, then exactly 1 (torch.linspace rounds some
+    entries the other way, and a field's steep fine levels amplify that)."""
+    if n == 1:
+        return torch.zeros(1, device=device)
+    step = torch.arange(n - 1, dtype=torch.float32, device=device) * float(np.float32(1.0 / (n - 1)))
+    return torch.cat([step, torch.ones(1, device=device)])
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int, u: Optional[torch.Tensor] = None):
+    """Inverse-CDF importance sampling (nerf/renderer.py:13-44): bin edges
+    bins [..., T + 1] and weights [..., T] -> samples [..., n_samples] at the
+    quantiles ``u`` [..., n_samples] (None: the midpoints
+    (k + 0.5) / n_samples, as ``det``)."""
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)  # [..., T + 1]
+    if u is None:
+        u = torch.linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples, device=cdf.device)
+        u = u.expand(*cdf.shape[:-1], n_samples)
+    u = u.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)  # #{i : cdf_i <= u}
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_b = torch.gather(cdf, -1, below)
+    cdf_a = torch.gather(cdf, -1, above)
+    bins_b = torch.gather(bins, -1, torch.clamp(below, max=bins.shape[-1] - 1))
+    bins_a = torch.gather(bins, -1, torch.clamp(above, max=bins.shape[-1] - 1))
+    denom = torch.where(cdf_a - cdf_b < 1e-5, torch.ones_like(cdf_a), cdf_a - cdf_b)
+    t = (u - cdf_b) / denom
+    return bins_b + t * (bins_a - bins_b)
+
+
 def render_rays(
     params,
     cfg: NeRFConfig,
@@ -66,23 +106,55 @@ def render_rays(
     rays_d: torch.Tensor,
     *,
     num_steps: int = 512,
+    upsample_steps: int = 0,
     bg_color=None,
     aabb: Optional[torch.Tensor] = None,
     min_near: float = 0.2,
     obj_feat=None,
+    perturb: bool = False,
+    z_noise: Optional[torch.Tensor] = None,
+    pdf_u: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
-    """Uniform-sampling render of rays [N, 3] -> dict(image, depth, weights_sum, sigmas)."""
+    """Uniform-sampling render of rays [N, 3] -> dict(image, depth, weights_sum, sigmas).
+
+    ``perturb`` (training) takes its draws as tensors: ``z_noise`` [N,
+    num_steps] jitters each sample by (z_noise - 0.5) of a step, ``pdf_u``
+    [N, upsample_steps] are the importance samples' quantiles, and ``u``
+    [N * (num_steps + upsample_steps), n_stoch, K, 3] the stochastic-corner
+    draws of the encode when the config trains with them. Without
+    ``perturb`` the importance samples sit at the midpoint quantiles.
+    """
+    if perturb and (z_noise is None or (upsample_steps > 0 and pdf_u is None)):
+        raise ValueError("perturb=True needs the jitter draws z_noise (and pdf_u with upsample_steps)")
     aabb = _aabb(cfg, aabb, rays_o.device)
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
     nears = nears[:, None]
     fars = fars[:, None]
-    z = torch.linspace(0.0, 1.0, num_steps, dtype=torch.float32, device=rays_o.device)[None, :]
+    z = _unit_linspace(num_steps, rays_o.device)[None, :]
     z_vals = nears + (fars - nears) * z
     sample_dist = (fars - nears) / num_steps
+    if perturb:
+        z_vals = z_vals + (z_noise - 0.5) * sample_dist
+
+    if upsample_steps > 0:
+        # the coarse pass only places the new samples (JAX stops their
+        # gradient), so it runs without autograd
+        with torch.no_grad():
+            xyz_c = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+            xyz_c = torch.maximum(torch.minimum(xyz_c, aabb[3:]), aabb[:3])
+            sig_c, _ = density_fn(params, cfg, xyz_c)
+            deltas_c = torch.cat([z_vals[..., 1:] - z_vals[..., :-1], sample_dist], dim=-1)
+            w_c = composite_weights(sig_c, deltas_c, cfg.density_scale)
+            # a + (b - a) / 2, not (a + b) / 2: rays that miss the box carry
+            # the 3e38 near/far sentinel, and a + b overflows to inf there
+            mids = z_vals[..., :-1] + 0.5 * (z_vals[..., 1:] - z_vals[..., :-1])
+            new_z = sample_pdf(mids, w_c[..., 1:-1], upsample_steps, pdf_u if perturb else None)
+            z_vals = torch.sort(torch.cat([z_vals, new_z], -1), -1).values
 
     xyzs = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     xyzs = torch.maximum(torch.minimum(xyzs, aabb[3:]), aabb[:3])
-    sigmas, geo_feat = density_fn(params, cfg, xyzs)
+    sigmas, geo_feat = density_fn(params, cfg, xyzs, u if perturb else None)
     deltas = torch.cat([z_vals[..., 1:] - z_vals[..., :-1], sample_dist], dim=-1)
     dirs = rays_d[:, None, :].expand(xyzs.shape)
     rgbs = color_fn(params, cfg, dirs, geo_feat, _objfeat_enc(params, cfg, obj_feat))
@@ -201,12 +273,10 @@ def render_image(
 
     With ``occ_bits`` the rays go through ``render_rays_occupancy`` (with
     ``occ_skip`` through its skip walk), else through ``num_steps`` uniform
-    samples. The last chunk is padded with
-    rays (o=0, d=+z). Returns (image [H, W, 3], depth [H, W]) on the params'
-    device.
+    samples and ``upsample_steps`` importance samples at the midpoint
+    quantiles. The last chunk is padded with rays (o=0, d=+z). Returns
+    (image [H, W, 3], depth [H, W]) on the params' device.
     """
-    if upsample_steps > 0:
-        raise NotImplementedError("upsample_steps > 0 (sample_pdf) is not ported yet")
     device = params["grid"].device
     aabb = _aabb(cfg, aabb, device)  # once: a per-chunk host copy would sync
     ro, rd = padded_rays(pose, intrinsics, H, W, max_ray_batch, device)
@@ -222,8 +292,8 @@ def render_image(
             )
         else:
             res = render_rays(
-                params, cfg, o, d, num_steps=num_steps, bg_color=bg_color, aabb=aabb,
-                min_near=min_near, obj_feat=obj_feat,
+                params, cfg, o, d, num_steps=num_steps, upsample_steps=upsample_steps,
+                bg_color=bg_color, aabb=aabb, min_near=min_near, obj_feat=obj_feat,
             )
         images.append(res["image"])
         depths.append(res["depth"])

@@ -1,20 +1,28 @@
-"""The occupancy train step (the reference's --cuda_ray training).
+"""The train steps: uniform sampling and occupancy marching.
 
-Twin of focnerf_tpu/train/steps.py::make_train_step_occupancy
-(nerf/utils.py:818-905):
+Twin of focnerf_tpu/train/steps.py (nerf/utils.py:818-905):
+``train_step`` is ``make_train_step`` (uniform samples with importance
+upsampling, the reference's training without --cuda_ray) and
+``train_step_occupancy`` is ``make_train_step_occupancy`` (--cuda_ray). Both:
 
   - RGBA ground truth is composited onto a per-pixel random background;
   - loss = per-ray mean-channel MSE, plus ``alpha_weight`` * MSE of the
     weights sum against GT alpha, plus ``mask_penalty`` * ||sigma outside the
-    object mask|| (``_safe_norm``: finite gradient at zero);
+    object mask|| (``_safe_norm``: finite gradient at zero), plus
+    ``tv_weight`` * the hash table's total variation at random points
+    (``_tv_term``);
   - one autograd backward (the hash table's gradient through the scatter
     kernel, the composite's through its backward kernel on the card), then
-    ``TrainState.apply_gradients`` (clip, Adam, LR schedule, EMA).
+    ``TrainState.apply_gradients`` (clip, Adam, LR schedule, EMA);
+  - the per-ray error feeds ``update_error_map``, the error map's EMA.
 
-torch cannot reproduce the JAX PRNG, so the step takes its draws as tensors
-(``draws``: ``bg`` [N, 3], march jitter ``noise`` [N], stochastic-corner
-uniforms ``u`` [N * slab, n_stoch, K, 3]); ``step_draws`` makes them from a
-``torch.Generator``. The TV term and the error map are not ported.
+torch cannot reproduce the JAX PRNG, so a step takes its draws as tensors;
+``step_draws`` and ``uniform_step_draws`` make them from a
+``torch.Generator`` in the JAX step's shapes: ``bg`` [N, 3], the march
+jitter ``noise`` [N] or the sample jitter ``z_noise`` [N, num_steps] and
+quantiles ``pdf_u`` [N, upsample_steps], the stochastic-corner uniforms
+``u`` [points, n_stoch, K, 3] of ``cfg.encode_spec`` (a coarse-to-fine
+stage's truncated spec), and with TV the points ``tv_x`` [8192, 3].
 """
 
 from __future__ import annotations
@@ -24,9 +32,11 @@ from typing import Dict
 import torch
 
 from focnerf_tpu_torch.models.nerf import NeRFConfig
-from focnerf_tpu_torch.ops.hashgrid import stochastic_levels
-from focnerf_tpu_torch.render.renderer import render_rays_occupancy
+from focnerf_tpu_torch.ops.hashgrid import hashgrid_tv_loss, stochastic_levels
+from focnerf_tpu_torch.render.renderer import render_rays, render_rays_occupancy
 from focnerf_tpu_torch.train.state import TrainState
+
+TV_POINTS = 8192  # random points of the TV term (JAX _tv_term's n_points)
 
 
 def _safe_norm(x):
@@ -34,16 +44,121 @@ def _safe_norm(x):
     return torch.sqrt((x * x).sum() + 1e-12)
 
 
-def step_draws(generator: torch.Generator, cfg: NeRFConfig, n_rays: int, slab: int, device) -> Dict:
-    """The random draws of one train step, in the JAX step's shapes."""
-    spec = cfg.grid_spec
+def _corner_draws(generator: torch.Generator, cfg: NeRFConfig, n_points: int, device) -> torch.Tensor:
+    spec = cfg.encode_spec
+    shape = (n_points, len(stochastic_levels(spec)), spec.stochastic_k, spec.input_dim)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def step_draws(generator: torch.Generator, cfg: NeRFConfig, n_rays: int, slab: int, device,
+               tv: bool = False) -> Dict:
+    """The random draws of one occupancy train step, in the JAX step's shapes."""
     kw = dict(generator=generator, device=device)
-    n_stoch = len(stochastic_levels(spec))
-    return {
+    draws = {
         "bg": torch.rand((n_rays, 3), **kw),
         "noise": torch.rand((n_rays,), **kw),
-        "u": torch.rand((n_rays * slab, n_stoch, spec.stochastic_k, spec.input_dim), **kw),
+        "u": _corner_draws(generator, cfg, n_rays * slab, device),
     }
+    if tv:
+        draws["tv_x"] = torch.rand((TV_POINTS, 3), **kw)
+    return draws
+
+
+def uniform_step_draws(generator: torch.Generator, cfg: NeRFConfig, n_rays: int, num_steps: int,
+                       upsample_steps: int, device, tv: bool = False) -> Dict:
+    """The random draws of one uniform train step, in the JAX step's shapes."""
+    kw = dict(generator=generator, device=device)
+    draws = {
+        "bg": torch.rand((n_rays, 3), **kw),
+        "z_noise": torch.rand((n_rays, num_steps), **kw),
+        "pdf_u": torch.rand((n_rays, upsample_steps), **kw),
+        "u": _corner_draws(generator, cfg, n_rays * (num_steps + upsample_steps), device),
+    }
+    if tv:
+        draws["tv_x"] = torch.rand((TV_POINTS, 3), **kw)
+    return draws
+
+
+def _tv_term(cfg: NeRFConfig, params, draws: Dict, tv_weight: float):
+    """``tv_weight`` * the table's total variation at the points ``tv_x``
+    (gridencoder.cu:628-643; the reference samples random points)."""
+    if tv_weight <= 0.0:
+        return 0.0
+    return tv_weight * hashgrid_tv_loss(params["grid"], draws["tv_x"], cfg.grid_spec)
+
+
+def _target(cfg: NeRFConfig, batch: Dict, draws: Dict, color_space: str):
+    """(pixels, background, RGB target) of a batch: RGBA composited onto
+    the per-pixel random background ``bg``."""
+    pixels = batch["pixels"]
+    if color_space == "linear":
+        from focnerf_tpu_torch.utils.color import srgb_to_linear
+
+        pixels = torch.cat([srgb_to_linear(pixels[..., :3]), pixels[..., 3:]], -1)
+    if pixels.shape[-1] == 4 and cfg.bg_radius <= 0:
+        bg = draws["bg"]
+        return pixels, bg, pixels[..., :3] * pixels[..., 3:] + bg * (1.0 - pixels[..., 3:])
+    return pixels, 1.0, pixels[..., :3]
+
+
+def _loss(cfg: NeRFConfig, params, batch: Dict, draws: Dict, pixels, gt, out, *, mask_penalty: float,
+          alpha_weight: float, tv_weight: float):
+    """(loss, per-ray error [N]) of a rendered batch ``out``."""
+    per_ray = ((out["image"] - gt) ** 2).mean(-1)
+    loss = per_ray.mean()
+    if alpha_weight > 0.0 and pixels.shape[-1] == 4:
+        loss = loss + alpha_weight * ((out["weights_sum"] - pixels[..., 3]) ** 2).mean()
+    ray_mask = batch.get("ray_mask")
+    if ray_mask is not None:
+        outside = torch.where(ray_mask[:, None], torch.zeros_like(out["sigmas"]), out["sigmas"])
+        loss = loss + mask_penalty * _safe_norm(outside)
+    return loss + _tv_term(cfg, params, draws, tv_weight), per_ray.detach()
+
+
+def uniform_loss(
+    params,
+    cfg: NeRFConfig,
+    batch: Dict,
+    draws: Dict,
+    *,
+    num_steps: int = 512,
+    upsample_steps: int = 0,
+    min_near: float = 0.2,
+    mask_penalty: float = 1e-8,
+    color_space: str = "srgb",
+    alpha_weight: float = 0.0,
+    tv_weight: float = 0.0,
+):
+    """(loss, aux) of one batch through ``render_rays`` with jittered
+    samples, differentiable in ``params``; aux holds ``per_ray_error`` [N]."""
+    pixels, bg, gt = _target(cfg, batch, draws, color_space)
+    out = render_rays(
+        params, cfg, batch["rays_o"], batch["rays_d"], num_steps=num_steps,
+        upsample_steps=upsample_steps, bg_color=bg, min_near=min_near,
+        obj_feat=batch.get("obj_feat"), perturb=True, z_noise=draws["z_noise"],
+        pdf_u=draws.get("pdf_u"), u=draws.get("u"),
+    )
+    loss, per_ray = _loss(cfg, params, batch, draws, pixels, gt, out, mask_penalty=mask_penalty,
+                          alpha_weight=alpha_weight, tv_weight=tv_weight)
+    return loss, {"per_ray_error": per_ray}
+
+
+def train_step(state: TrainState, batch: Dict, draws: Dict, *, cfg: NeRFConfig, **kw) -> Dict:
+    """One uniform-sampling optimizer step on ``state`` (updated in place)
+    -> metrics: ``loss`` (a device scalar) and ``per_ray_error``. ``kw`` as
+    ``uniform_loss``."""
+    loss, aux = uniform_loss(state.params, cfg, batch, draws, **kw)
+    loss.backward()
+    state.apply_gradients()
+    return {"loss": loss.detach(), "per_ray_error": aux["per_ray_error"]}
+
+
+def update_error_map(error_map: torch.Tensor, inds_coarse: torch.Tensor, per_ray_error: torch.Tensor):
+    """The error map's EMA at the sampled cells (nerf/utils.py:884-899):
+    0.1 * old + 0.9 * this step's per-ray error -> a new map."""
+    out = error_map.clone()
+    out[inds_coarse] = 0.1 * error_map[inds_coarse] + 0.9 * per_ray_error
+    return out
 
 
 def occupancy_loss(
@@ -62,22 +177,12 @@ def occupancy_loss(
     T_thresh: float = 1e-4,
     alpha_weight: float = 0.0,
     skip_field: bool = False,
+    tv_weight: float = 0.0,
 ):
     """(loss, aux) of one batch, differentiable in ``params``. ``occ`` is the
     bool bitfield or, with ``skip_field``, the uint8 skip field. aux holds
     ``per_ray_error`` [N], ``n_samples`` [N] and ``march_iters``."""
-    pixels = batch["pixels"]
-    if color_space == "linear":
-        from focnerf_tpu_torch.utils.color import srgb_to_linear
-
-        pixels = torch.cat([srgb_to_linear(pixels[..., :3]), pixels[..., 3:]], -1)
-    c = pixels.shape[-1]
-    if c == 4 and cfg.bg_radius <= 0:
-        bg = draws["bg"]
-        gt = pixels[..., :3] * pixels[..., 3:] + bg * (1.0 - pixels[..., 3:])
-    else:
-        bg = 1.0
-        gt = pixels[..., :3]
+    pixels, bg, gt = _target(cfg, batch, draws, color_space)
     out = render_rays_occupancy(
         params, cfg, batch["rays_o"], batch["rays_d"], occ,
         dt_gamma=dt_gamma, max_steps=max_steps, slab=slab, bg_color=bg, min_near=min_near,
@@ -85,16 +190,10 @@ def occupancy_loss(
         occ_skip=occ if skip_field else None,
         perturb=True, noise=draws["noise"], u=draws["u"],
     )
-    per_ray = ((out["image"] - gt) ** 2).mean(-1)
-    loss = per_ray.mean()
-    if alpha_weight > 0.0 and c == 4:
-        loss = loss + alpha_weight * ((out["weights_sum"] - pixels[..., 3]) ** 2).mean()
-    ray_mask = batch.get("ray_mask")
-    if ray_mask is not None:
-        outside = torch.where(ray_mask[:, None], torch.zeros_like(out["sigmas"]), out["sigmas"])
-        loss = loss + mask_penalty * _safe_norm(outside)
+    loss, per_ray = _loss(cfg, params, batch, draws, pixels, gt, out, mask_penalty=mask_penalty,
+                          alpha_weight=alpha_weight, tv_weight=tv_weight)
     aux = {
-        "per_ray_error": per_ray.detach(),
+        "per_ray_error": per_ray,
         "n_samples": out["n_samples"],
         "march_iters": out["march_iters"],
     }

@@ -1,24 +1,27 @@
 """Training orchestration: epochs, eval, occupancy maintenance, checkpoints.
 
-Twin of focnerf_tpu/train/trainer.py for the ``main_nerf -O`` path: the
-constructor's checkpoint modes (:237-280), ``train`` with the occupancy
-cadence (update every ``update_extra_interval`` steps, :432-452), the
-bitfield / skip-field cache (:537-547) and the slab buckets (:454-475),
-``evaluate`` with PSNR/SSIM/LPIPS and the best checkpoint (:791-842), and
-``test`` (:844-880). A view renders as ``_render_view`` (:378-418) has it:
-with the occupancy grid, the ``iter``/``iter_dev`` eval renderers go
-through render/iterative.py, everything else through the oneshot
-``render_image``.
+Twin of focnerf_tpu/train/trainer.py: the constructor's checkpoint modes
+(:237-280) and coarse-to-fine schedule (:192-217), ``train`` (:705-764) with
+the occupancy cadence (update every ``update_extra_interval`` steps,
+:432-452), the bitfield / skip-field cache (:537-547), the slab buckets
+(:454-475) and the error map's update after each step (:41-47, :745-750);
+each step's config from ``_phase_cfg`` (:315-342: the c2f stage's active
+levels, the gradient phase's level subset); the uniform-sampling step
+without the occupancy grid; ``evaluate`` with PSNR/SSIM/LPIPS and the best
+checkpoint (:791-842), ``test`` (:844-880) and ``save_mesh`` (:895-912). A
+view renders as ``_render_view`` (:378-418) has it: with the occupancy
+grid, the ``iter``/``iter_dev`` eval renderers go through
+render/iterative.py, everything else through the oneshot ``render_image``.
 
 Every draw comes from one ``torch.Generator`` on the training device,
-seeded by ``seed``. Not ported (refused when asked for): training without
-the occupancy grid, coarse-to-fine, gradient-level phases, error-map and
-patch sampling, the TV term, the CLIP rand-pose branch and mesh export. ``steps_per_dispatch`` > 1 runs
-one step per dispatch (its fused form gives the same steps).
+seeded by ``seed``. The CLIP rand-pose branch is not ported and is refused
+when asked for. ``steps_per_dispatch`` > 1 runs one step per dispatch (its
+fused form gives the same steps).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import List, Optional
@@ -41,7 +44,13 @@ from focnerf_tpu_torch.render.renderer import render_image
 from focnerf_tpu_torch.train.checkpoints import BestCheckpoint, CheckpointManager, save_model_config
 from focnerf_tpu_torch.train.meters import LPIPSMeter, PSNRMeter, SSIMMeter
 from focnerf_tpu_torch.train.state import TrainState
-from focnerf_tpu_torch.train.steps import step_draws, train_step_occupancy
+from focnerf_tpu_torch.train.steps import (
+    step_draws,
+    train_step,
+    train_step_occupancy,
+    uniform_step_draws,
+    update_error_map,
+)
 
 EVAL_RENDERERS = ("oneshot", "iter", "iter_dev")
 
@@ -85,21 +94,29 @@ class Trainer:
         use_checkpoint: str = "latest",
         seed: int = 0,
         rand_pose: int = -1,
-        error_map: bool = False,
-        patch_size: int = 1,
         device=None,
     ):
-        unported = {
-            "grad_level_phases > 1": grad_level_phases > 1,
-            "c2f": bool(c2f),
-            "error_map (error-map pixel sampling)": error_map,
-            f"patch_size {patch_size} > 1 (patch sampling)": patch_size > 1,
-            "tv_weight > 0": tv_weight > 0.0,
-            "rand_pose >= 0 (CLIP guidance)": rand_pose >= 0,
-        }
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+        if rand_pose >= 0:
+            raise NotImplementedError("not ported yet: rand_pose >= 0 (CLIP guidance)")
+        self.grad_level_phases = max(0, grad_level_phases)
+        if self.grad_level_phases > 1 and not use_occupancy:
+            raise ValueError("grad_level_phases > 1 requires the occupancy path; drop it or pass "
+                             "use_occupancy=True / --cuda_ray")
+        # "0.3:8,0.6:12": the first 8 levels until 30% of iters, 12 until
+        # 60%, all after (a boundary <= 1 is a fraction of iters, > 1 a step)
+        self.c2f_stages = []
+        for part in filter(None, (p.strip() for p in c2f.split(","))):
+            b, lv = part.split(":")
+            end = int(round(float(b) * iters)) if float(b) <= 1.0 else int(float(b))
+            self.c2f_stages.append((end, int(lv)))
+        self.c2f_stages.sort()
+        if self.c2f_stages:
+            if not use_occupancy:
+                raise ValueError("c2f schedule requires the occupancy path; drop c2f or pass "
+                                 "use_occupancy=True / --cuda_ray")
+            bad = [lv for _, lv in self.c2f_stages if not 0 < lv <= cfg.num_levels]
+            if bad:
+                raise ValueError(f"c2f levels {bad} outside [1, {cfg.num_levels}]")
         self.device = resolve_device(device)
         self.name = name
         self.cfg = cfg
@@ -126,6 +143,7 @@ class Trainer:
         self.min_near = min_near
         self.color_space = color_space
         self.alpha_loss = alpha_loss
+        self.tv_weight = tv_weight
         self.eval_interval = eval_interval
         self.ckpt_interval = max(1, int(ckpt_interval))
         self.eval_save_images = eval_save_images
@@ -241,42 +259,85 @@ class Trainer:
             self._occ_cache = occupancy_skip_field(bits) if self.skip_march else bits
         return self._occ_cache
 
-    def train_step_once(self, train_dataset):
-        """One optimizer step -> its metrics (the loss still on the device)."""
+    def _phase_cfg(self):
+        """This step's config and its (phase, active levels): a c2f stage
+        encodes its first ``active`` levels; with ``grad_level_phases`` P > 1
+        step k trains the table rows of the active levels l with l % P ==
+        k % P. Eval and the occupancy update keep the full ``self.cfg``."""
+        cfg, active = self.cfg, 0
+        for end, lv in self.c2f_stages:
+            if self.global_step < end:
+                active = lv
+                break
+        if active:
+            cfg = dataclasses.replace(cfg, active_levels=active)
+        P = self.grad_level_phases
+        if P <= 1:
+            return cfg, (0, active)
+        phase = self.global_step % P
+        levels = tuple(lvl for lvl in range(active or cfg.num_levels) if lvl % P == phase)
+        return dataclasses.replace(cfg, grad_levels=levels), (phase, active)
+
+    def _train_step(self, train_dataset):
+        """One optimizer step -> (its batch, its metrics, the loss still on
+        the device): through the occupancy march when the trainer has the
+        grid, else through uniform samples."""
         self._maybe_update_occupancy()
         batch = train_dataset.train_batch(self.generator)
-        slab = self.active_slab
-        draws = step_draws(self.generator, self.cfg, batch["rays_o"].shape[0], slab, self.device)
-        metrics = train_step_occupancy(
-            self.state, batch, self._occ_bits_for_batch(), draws, cfg=self.cfg,
-            dt_gamma=self.dt_gamma, max_steps=self.max_steps, slab=slab,
-            min_near=self.min_near, color_space=self.color_space,
-            alpha_weight=self.alpha_loss, skip_field=self.skip_march,
-        )
-        self._last_mean_samples = metrics["mean_samples"]
+        n, tv = batch["rays_o"].shape[0], self.tv_weight > 0.0
+        common = dict(min_near=self.min_near, color_space=self.color_space, alpha_weight=self.alpha_loss,
+                      tv_weight=self.tv_weight)
+        if self.occupancy is not None:
+            cfg, _ = self._phase_cfg()
+            slab = self.active_slab
+            draws = step_draws(self.generator, cfg, n, slab, self.device, tv=tv)
+            metrics = train_step_occupancy(
+                self.state, batch, self._occ_bits_for_batch(), draws, cfg=cfg,
+                dt_gamma=self.dt_gamma, max_steps=self.max_steps, slab=slab,
+                skip_field=self.skip_march, **common,
+            )
+            self._last_mean_samples = metrics["mean_samples"]
+        else:
+            draws = uniform_step_draws(self.generator, self.cfg, n, self.num_steps, self.upsample_steps,
+                                       self.device, tv=tv)
+            metrics = train_step(self.state, batch, draws, cfg=self.cfg, num_steps=self.num_steps,
+                                 upsample_steps=self.upsample_steps, **common)
         self.global_step += 1
-        return metrics
+        return batch, metrics
+
+    def train_step_once(self, train_dataset):
+        """One optimizer step -> its metrics (the loss still on the device)."""
+        return self._train_step(train_dataset)[1]
+
+    @staticmethod
+    def _error_map_step(train_dataset, batch, metrics):
+        """The error map's EMA at this step's cells, for its view, on the
+        device (the view stays a tensor: no host sync)."""
+        view = batch["view"].reshape(1)
+        em = train_dataset.error_map
+        new = update_error_map(em.index_select(0, view)[0], batch["inds_coarse"], metrics["per_ray_error"])
+        em.index_copy_(0, view, new[None])
 
     def train(self, train_dataset, valid_dataset=None, max_epochs: int = 1,
               steps_per_epoch: Optional[int] = None):
-        if self.occupancy is None:
-            raise NotImplementedError(
-                "training without the occupancy grid (--cuda_ray / -O) is not ported yet"
-            )
         if steps_per_epoch is None:
             steps_per_epoch = train_dataset.n_views
         if self.epoch == 0 and self.global_step > 0 and steps_per_epoch > 0:
             # resumed: continue the epoch numbering so the cadences line up
             self.epoch = self.global_step // steps_per_epoch
-        self._mark_untrained(train_dataset)
+        if self.occupancy is not None:
+            self._mark_untrained(train_dataset)
         for _ep in range(max_epochs):
             self.epoch += 1
             t0 = time.time()
             losses = []
             for _ in range(steps_per_epoch):
-                metrics = self.train_step_once(train_dataset)
+                batch, metrics = self._train_step(train_dataset)
                 losses.append(metrics["loss"])
-                self.march_iters.append(metrics["march_iters"])
+                if "march_iters" in metrics:
+                    self.march_iters.append(metrics["march_iters"])
+                if getattr(train_dataset, "error_map", None) is not None and "inds_coarse" in batch:
+                    self._error_map_step(train_dataset, batch, metrics)
             epoch_losses = torch.stack(losses).tolist()  # one sync per epoch
             self.step_losses += epoch_losses
             self.log(f"[epoch {self.epoch}] loss={np.mean(epoch_losses):.6f} "
@@ -406,4 +467,19 @@ class Trainer:
         self.ckpt.save(self.state.state_dict(), self.occupancy)
 
     def save_mesh(self, resolution: int = 256, threshold: float = 10.0, path: Optional[str] = None):
-        raise NotImplementedError("mesh export (utils/mesh_extract.py) is not ported yet")
+        """The EMA field's density iso-surface at ``threshold`` on a
+        ``resolution``^3 grid over the bound box, as an OBJ (utils.py:971-992,
+        512-542) -> its path."""
+        from focnerf_tpu_torch.utils.mesh_extract import extract_mesh, save_obj
+
+        verts, faces = extract_mesh(self._mesh_density(self.state.ema_params), bound=self.cfg.bound,
+                                    resolution=resolution, threshold=threshold, device=self.device)
+        if path is None:
+            os.makedirs(os.path.join(self.workspace, "meshes"), exist_ok=True)
+            path = os.path.join(self.workspace, "meshes", f"{self.name}_{self.epoch}.obj")
+        save_obj(path, verts, faces)
+        self.log(f"[mesh] saved {path} ({len(verts)} verts, {len(faces)} faces)")
+        return path
+
+    def _mesh_density(self, params):
+        return lambda x: density_fn(params, self.cfg, x)[0]

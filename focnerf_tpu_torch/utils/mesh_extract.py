@@ -8,6 +8,9 @@ Twin of focnerf_tpu/utils/mesh_extract.py (host code, not a device kernel):
     through ctypes, or, when it cannot be built, a vectorized numpy version
     of the same decomposition; ``marching_tets`` prints which ran;
   - ``weld_vertices`` turns the triangle soup into an indexed mesh;
+  - ``extract_fields`` queries a density function on a dense grid over the
+    bound box (on its device, without gradients), and ``extract_mesh``
+    meshes that grid: the hash field's mesh export;
   - ``mesh_from_volume`` meshes a baked volume's sigma channel directly;
   - OBJ / PLY writers.
 """
@@ -21,6 +24,7 @@ import shutil
 import subprocess
 
 import numpy as np
+import torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NATIVE_SOURCE = os.path.join(_ROOT, "native", "marching_tets.cpp")
@@ -151,6 +155,32 @@ def weld_vertices(tri_soup: np.ndarray, decimals: int = 5):
     faces = inv.reshape(-1, 3)
     good = (faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) & (faces[:, 0] != faces[:, 2])
     return uniq.astype(np.float32), faces[good].astype(np.int32)
+
+
+def extract_fields(density_eval, bound: float, resolution: int = 256, device="cpu",
+                   slabs: int = 8) -> np.ndarray:
+    """sigma [R, R, R] at the points (xs[i], xs[j], xs[k]), xs =
+    linspace(-bound, bound, R), from ``density_eval`` (points [..., 3] on
+    ``device`` -> sigma [...]), ``slabs`` x-slabs a call (utils.py:512-527)."""
+    xs = torch.from_numpy(np.linspace(-bound, bound, resolution, dtype=np.float32)).to(device)
+    yy, zz = torch.meshgrid(xs, xs, indexing="ij")
+    grid = np.empty((resolution, resolution, resolution), np.float32)
+    with torch.no_grad():
+        for x0 in range(0, resolution, slabs):
+            xx = xs[x0 : x0 + slabs]
+            pts = torch.stack([xx[:, None, None].expand(-1, resolution, resolution),
+                               yy.expand(len(xx), -1, -1), zz.expand(len(xx), -1, -1)], -1)
+            grid[x0 : x0 + len(xx)] = density_eval(pts).float().cpu().numpy()
+    return grid
+
+
+def extract_mesh(density_eval, bound: float, resolution: int = 256, threshold: float = 10.0, device="cpu"):
+    """Density grid -> marching tetrahedra -> (verts in world coordinates
+    [-bound, bound]^3, faces)."""
+    grid = extract_fields(density_eval, bound, resolution, device)
+    verts, faces = weld_vertices(marching_tets(grid, threshold))
+    verts = verts / (resolution - 1) * (2 * bound) - bound
+    return verts, faces
 
 
 def mesh_from_volume(vol, threshold: float = 10.0):

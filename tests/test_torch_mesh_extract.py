@@ -1,6 +1,7 @@
 """Mesh extraction (utils/mesh_extract.py) on the CPU against the JAX
 package's: the numpy marching tetrahedra, the native library built from
-native/marching_tets.cpp, and ``mesh_from_volume`` on a 16^3 field, compared
+native/marching_tets.cpp, ``mesh_from_volume`` on a 16^3 field and
+``extract_mesh`` over a density function (the hash field's export), compared
 as triangle sets after welding; and the OBJ/PLY writers."""
 
 import numpy as np
@@ -63,3 +64,22 @@ def test_mesh_from_volume_matches_jax(tmp_path):
     tm.save_ply(str(tmp_path / "t.ply"), *got)
     jm.save_ply(str(tmp_path / "j.ply"), *got)
     assert open(tmp_path / "t.ply", "rb").read() == open(tmp_path / "j.ply", "rb").read()
+
+
+def test_extract_mesh_matches_jax(tmp_path):
+    """The hash field's export: a density function sampled on a 24^3 grid
+    over [-1.5, 1.5]^3, meshed at 10. A polynomial field, so both packages
+    compute the same fp32 grid; then the same triangle set."""
+    import jax.numpy as jnp
+
+    def sigma(x, sum_):
+        r2 = sum_(x * x)
+        return 30.0 - 25.0 * r2 + 6.0 * x[..., 0] * x[..., 1]
+
+    got = tm.extract_mesh(lambda x: sigma(x, lambda v: v.sum(-1)), bound=1.5, resolution=24, threshold=10.0)
+    want = jm.extract_mesh(lambda x: sigma(x, lambda v: jnp.sum(v, -1)), bound=1.5, resolution=24, threshold=10.0)
+    grid_t = tm.extract_fields(lambda x: sigma(x, lambda v: v.sum(-1)), 1.5, 24)
+    grid_j = jm.extract_fields(lambda x: sigma(x, lambda v: jnp.sum(v, -1)), 1.5, 24)
+    np.testing.assert_array_equal(grid_t, grid_j)
+    assert len(got[1]) > 100 and np.abs(got[0]).max() <= 1.5
+    np.testing.assert_array_equal(triangle_set(*got), triangle_set(*want))

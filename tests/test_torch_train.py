@@ -1,8 +1,8 @@
 """The training slice as a whole on the CPU: Adam, LR and EMA against
 optax (a), one ``train_step_occupancy`` against the JAX package's
-``make_train_step_occupancy`` from a JAX state carried across (b), the
-meters (c), and ``main_nerf -O`` training, resuming and serving end to end
-(d)."""
+``make_train_step_occupancy`` from a JAX state carried across, at a small
+width and at the default full width (b), the meters (c), and ``main_nerf
+-O`` training, resuming, exporting its mesh and serving end to end (d)."""
 
 import os
 import sys
@@ -117,10 +117,28 @@ STEP_TOL = {"float32": (1e-5, 1e-5, 1e-4), "bfloat16": (1e-4, 5e-3, 5e-3)}
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_train_step_matches_jax(dtype):
+    _check_occupancy_step(SMALL_O, dtype, min_live=0.01)
+
+
+# -O at the default width (16 levels x 2, a 2^19 table, 64-wide MLPs) at
+# F4's bound 1: the table's hashed levels and the full MLPs, which the small
+# config does not reach. Only ~0.5% of the 6.3M table rows see a sample.
+FULL_O = dict(bound=1.0, stochastic_corners=1, stochastic_min_size=1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_full_width_O_step_matches_jax(dtype):
+    _check_occupancy_step(FULL_O, dtype, min_live=1e-3)
+
+
+def _check_occupancy_step(cfg_kw, dtype, min_live):
+    """One -O step of the port against ``make_train_step_occupancy`` from a
+    JAX state carried across (params, Adam moments, EMA), on the same batch,
+    skip field and draws: loss, gradients and the update at STEP_TOL."""
     from focnerf_tpu.train.steps import make_train_step_occupancy
 
-    jcfg = jnerf.NeRFConfig(**SMALL_O, compute_dtype=getattr(jnp, dtype))
-    tcfg = tnerf.NeRFConfig(**SMALL_O, compute_dtype=getattr(torch, dtype))
+    jcfg = jnerf.NeRFConfig(**cfg_kw, compute_dtype=getattr(jnp, dtype))
+    tcfg = tnerf.NeRFConfig(**cfg_kw, compute_dtype=getattr(torch, dtype))
     params = make_jax_params(jcfg, grid_scale=0.5)
     params["sigma_net"][-1][:, 0] *= 4.0  # a visible object
     lr, iters = 1e-2, 100
@@ -172,7 +190,7 @@ def test_train_step_matches_jax(dtype):
         # the carried gradient clears 1e-3 of the largest
         floor = 1e-3 * np.abs(g).max()
         live = (np.abs(g) > floor) | (np.abs(mu2) > floor)
-        assert live.mean() > 0.01
+        assert live.mean() > min_live
         np.testing.assert_allclose(got[live], want[live], rtol=0, atol=p_tol * lr)
     for got, want in zip(_leaves(ts.ema_params), _leaves(s3.ema_params)):
         np.testing.assert_allclose(got, want, rtol=0, atol=p_tol * lr)
@@ -207,7 +225,7 @@ def test_main_nerf_trains_resumes_and_serves(tmp_path, eval_renderer):
     scene = make_synthetic_scene(str(tmp_path / "scene"), n_train=4, n_val=1)
     ws = str(tmp_path / "ws")
     common = [scene, "-O", "--workspace", ws, "--disable_yolo", "--scale", "1.0", "--bound", "1.0",
-              "--grid_levels", "4", "--num_rays", "256", "--max_ray_batch", "1024"]
+              "--grid_levels", "4", "--num_rays", "256", "--max_ray_batch", "1024", "--mesh_res", "32"]
     if eval_renderer != "iter":
         common += ["--eval_renderer", eval_renderer]
     render_rays_iterative.rounds = 0
@@ -224,6 +242,7 @@ def test_main_nerf_trains_resumes_and_serves(tmp_path, eval_renderer):
     assert os.path.exists(os.path.join(f"{ws}_background", "best", "best.pt"))
     with open(os.path.join(ws, "train_times.txt")) as f:
         assert f.read().startswith("background:")
+    assert os.path.exists(os.path.join(f"{ws}_background", "meshes", f"ngp_{tr.epoch}.obj"))  # --mesh_res
 
     # --ckpt latest resumes at the saved step with the saved Adam state
     (tr2,) = main_nerf.main(common + ["--iters", "36"], device="cpu")

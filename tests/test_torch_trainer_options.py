@@ -1,7 +1,8 @@
 """Trainer options the port refuses or ignores, the eval meters, and the
 profiler's busy time, on the CPU:
 
-  - error-map and patch sampling are refused by name (not silently dropped);
+  - the CLIP rand-pose branch is refused by name (not silently dropped), and
+    the sampling options reach the dataset;
   - ``evaluate`` reports PSNR, SSIM and LPIPS as JAX's does;
   - ``--grid_int8`` and ``--no-preload`` each print why they are ignored;
   - ``utils/measure.busy_ms`` counts overlapping device events once.
@@ -39,16 +40,13 @@ def scene(tmp_path_factory):
     return make_synthetic_scene(str(tmp_path_factory.mktemp("opts") / "scene"), n_train=2, n_val=1)
 
 
-@pytest.mark.parametrize("flags,named", [
-    (["--error_map"], "error_map"),
-    (["--patch_size", "4"], "patch_size 4"),
-])
-def test_unported_sampling_is_refused(scene, tmp_path, flags, named):
-    opt = parse_options([scene, "-O"] + flags)
+def test_rand_pose_is_refused(scene, tmp_path):
+    opt = parse_options([scene, "-O", "--error_map", "--patch_size", "4"])
     ds = opt.dataset_options()
-    assert (ds.error_map, ds.patch_size) == (opt.error_map, opt.patch_size)
-    with pytest.raises(NotImplementedError, match=named):
-        main_nerf.main([scene, "-O", "--workspace", str(tmp_path / "ws")] + TINY + flags, device="cpu")
+    assert (ds.error_map, ds.patch_size) == (True, 4)
+    with pytest.raises(NotImplementedError, match="rand_pose"):
+        main_nerf.main([scene, "-O", "--workspace", str(tmp_path / "ws")] + TINY + ["--rand_pose", "0"],
+                       device="cpu")
 
 
 def test_evaluate_reports_the_jax_metrics(scene, tmp_path):
