@@ -84,7 +84,8 @@ non-zero exit code and no result line:
      the uniform path at 512 steps) must agree as the render checks do;
      composing [A, A] must equal [A] bit for bit, and [A] composed must
      equal ``render_image`` of A within 1e-5; then one composed 800x800
-     view is profiled by stage and under torch.profiler;
+     view is profiled by stage, and the same camera at 400x400 under
+     torch.profiler;
   9. baked reference: the shear-warp renderer on the card against the CPU
      on an analytic two-blob volume at 64^3, 96x96 views from six poses
      (every axis and flip), dense sh_deg 0 and 2 and uint8-resident: the
@@ -118,7 +119,29 @@ non-zero exit code and no result line:
      launches (none: the voxel path runs neither kernel);
  15. voxel profile: one dense 256^3 train step by stage (relayout, hat
      matrices, resample, fold; forward, backward with its recompute, Adam)
-     and 5 steps under torch.profiler for the device's busy share.
+     and 5 steps under torch.profiler for the device's busy share;
+ 16. D-NeRF kernel (``[kernel-dnerf]``, run right after phase 3's
+     kernels): the table gradient on the hyper field's 5-D layout (4096 x
+     128 points, 16 levels x 32 corners, J = 512) against its plain
+     version, timed beside ``index_add_``;
+ 17. D-NeRF (``[dnerf]``): a moving RGBA sphere at 400x400 (50 train
+     frames, each with its time; 4 val, 4 test), ``main_dnerf -O
+     --dnerf_variant deform --iters 500 --time_slots 8`` at full width: warm
+     median ms/step, peak memory, the loss curve's ends, val PSNR (gate 18
+     dB), each backward kernel once a step and the forward at least once,
+     the time grid refreshed (more than one slot non-zero), the meshes at
+     t = 0 and t = 1 and the checkpoint; then ``--test -O`` renders the
+     test split across time and its video, and 3 more steps are profiled
+     (``[dnerf-profile]``: busy share, top kernels);
+ 18. D-NeRF reference (``[dnerf-reference]``): a train step of deform (the
+     trained params; on the slot's skip walk and on uniform samples), basis
+     and hyper on the card against the CPU in fp32 (loss and every
+     gradient, the deformation and hyper nets' through the encode's position
+     gradient), and a 64x64 view at t = 0.5 through the slot's bitfield;
+ 19. D-NeRF variants (``[dnerf-variants]``): basis and hyper under ``-O``
+     and deform without it (512 uniform samples) for 20-30 full-width steps:
+     ms/step, peak memory, a finite falling loss, one backward launch each a
+     step.
 
 Every phase prints its seconds (``[phase] <name>: s``).
 
@@ -128,8 +151,8 @@ every kernel with its launches on the training path (``launches``), in the
 (``launches_edit``), in the two ``--baked`` runs
 (``launches_baked_compose``, ``launches_baked_edit``), over phase 14's
 voxel runs (``launches_voxel``), in the uniform training run
-(``launches_uniform``) and in the second object's ``-O2`` run
-(``launches_o2``).
+(``launches_uniform``), in the second object's ``-O2`` run
+(``launches_o2``) and in phase 17's D-NeRF training run (``launches_dnerf``).
 """
 
 from __future__ import annotations
@@ -531,23 +554,17 @@ def phase_composite_backward_kernel() -> dict:
     }
 
 
-def table_grad_inputs(cfg, samples: int = 128, stochastic: bool = True, one_cell: bool = False):
-    """Rows and weights of the encode of 4096 rays x ``samples`` points
-    through the bound box (stochastic K=1 corners: the -O training encode;
-    else 8 exact corners per level), and a cotangent. ``one_cell``: every
-    point lies in one level-0 cell instead, the most duplicated rows an
-    input can have."""
+def ray_points01(cfg, samples: int, g):
+    """[CHUNK * samples, 3] points in [0, 1]^3: ``samples`` evenly spaced
+    along each of CHUNK rays from one camera through the bound box."""
     import numpy as np
     import torch
 
     from focnerf_tpu_torch.core.camera import rand_poses
     from focnerf_tpu_torch.core.geometry import near_far_from_aabb
-    from focnerf_tpu_torch.ops import hashgrid as thg
     from focnerf_tpu_torch.render.renderer import default_aabb
 
     dev = torch.device("cuda")
-    spec = cfg.grid_spec
-    g = torch.Generator(device="cuda").manual_seed(2)
     pose = torch.from_numpy(rand_poses(np.random.default_rng(5), 1, radius=4.0)[0]).to(dev)
     d = torch.randn(CHUNK, 3, generator=g, device=dev) * 0.2 + pose[:3, 2]
     d = d / d.norm(dim=-1, keepdim=True)
@@ -555,7 +572,23 @@ def table_grad_inputs(cfg, samples: int = 128, stochastic: bool = True, one_cell
     near, far = near_far_from_aabb(o, d, default_aabb(cfg, dev), 0.2)
     frac = (torch.arange(samples, device=dev) + 0.5) / samples
     x = o[:, None] + d[:, None] * (near[:, None] + (far - near)[:, None] * frac)[..., None]
-    x01 = ((x + cfg.bound) / (2 * cfg.bound)).reshape(-1, 3)
+    return ((x + cfg.bound) / (2 * cfg.bound)).reshape(-1, 3)
+
+
+def table_grad_inputs(cfg, samples: int = 128, stochastic: bool = True, one_cell: bool = False):
+    """Rows and weights of the encode of 4096 rays x ``samples`` points
+    through the bound box (stochastic K=1 corners: the -O training encode;
+    else 8 exact corners per level), and a cotangent. ``one_cell``: every
+    point lies in one level-0 cell instead, the most duplicated rows an
+    input can have."""
+    import torch
+
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    dev = torch.device("cuda")
+    spec = cfg.grid_spec
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x01 = ray_points01(cfg, samples, g)
     if one_cell:  # level 0's cell [8, 9)^3 of pos = x * scale + 0.5
         scale = thg._level_scale(spec, 0)
         x01 = (7.5 + 0.98 * torch.rand(x01.shape, generator=g, device=dev)) / scale
@@ -865,15 +898,15 @@ def phase_serving(work: str, dev):
     return params, cfg, occupancy_bitfield(occ, opt.density_thresh)
 
 
-def sphere_view(pose, fl: float, spheres=(SPHERE,)):
-    """RGBA render [RES, RES, 4] uint8 of analytic spheres (``(centre,
+def sphere_view(pose, fl: float, spheres=(SPHERE,), res: int = RES):
+    """RGBA render [res, res, 4] uint8 of analytic spheres (``(centre,
     radius, colour below, colour above)``: one colour where y < 0, another
     above) for an ngp pose, the nearest hit in front; transparent around
     them, as a Blender object render is."""
     import numpy as np
 
-    yy, xx = np.mgrid[0:RES, 0:RES].astype(np.float32)
-    dirs = np.stack([(xx + 0.5 - RES / 2) / fl, (yy + 0.5 - RES / 2) / fl, np.ones_like(xx)], -1)
+    yy, xx = np.mgrid[0:res, 0:res].astype(np.float32)
+    dirs = np.stack([(xx + 0.5 - res / 2) / fl, (yy + 0.5 - res / 2) / fl, np.ones_like(xx)], -1)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     d = dirs.reshape(-1, 3) @ pose[:3, :3].T
     t_near = np.full(d.shape[0], np.inf)
@@ -888,7 +921,7 @@ def sphere_view(pose, fl: float, spheres=(SPHERE,)):
         rgb = np.where(hit[:, None], np.where((y < 0)[:, None], [below], [above]), rgb)
         t_near = np.where(hit, t, t_near)
     rgba = np.concatenate([rgb, np.isfinite(t_near)[:, None]], -1)
-    return (rgba.reshape(RES, RES, 4) * 255 + 0.5).astype(np.uint8)
+    return (rgba.reshape(res, res, 4) * 255 + 0.5).astype(np.uint8)
 
 
 def write_training_scene(root: str, scale: float, obj: str = OBJECT, spheres=(SPHERE,), feat: float = 0.0,
@@ -1509,10 +1542,7 @@ def phase_uniform_train(work: str, dev, smi: str):
     params, cfg = trainer.state.ema_params, trainer.cfg
     sigma_max = float(extract_fields(lambda x: density_fn(params, cfg, x)[0], cfg.bound, 64, dev).max())
     mesh = os.path.join(f"{ws}_{OBJECT}", "meshes", f"ngp_{trainer.epoch}.obj")
-    faces = 0
-    if os.path.exists(mesh):
-        with open(mesh) as f:
-            faces = sum(line.startswith("f ") for line in f)
+    faces = _faces(mesh) if os.path.exists(mesh) else 0
     samples = sum(UNIFORM_STEPS)
     eval_chunks = math.ceil(RES * RES / CHUNK)
     print(f"[uniform] main_nerf (no -O) --num_steps {UNIFORM_STEPS[0]} --upsample_steps {UNIFORM_STEPS[1]} "
@@ -1809,8 +1839,9 @@ def phase_composition_reference(root: str, scene: str, dev):
 def phase_compose_profile(loaded, march, pose):
     """Where one composed 800x800 view's time goes (K=2, occupancy path, the
     CLI's model, ``loaded`` on the card; the CLIs warmed this path up):
-    CUDA events around each stage the compositor calls, then the same view
-    under torch.profiler (device busy share, top kernels)."""
+    CUDA events around each stage the compositor calls, then the same
+    camera at half the resolution under torch.profiler (device busy share,
+    top kernels)."""
     import collections
 
     import numpy as np
@@ -1858,17 +1889,22 @@ def phase_compose_profile(loaded, march, pose):
           "(ms, share of wall; hashgrid_encode is inside density_fn): "
           + ", ".join(f"{n} {ms:.1f} ({ms / wall:.1%}, {len(spans[n])} calls)" for n, ms in
                       sorted(stage.items(), key=lambda kv: -kv[1])))
+    # the profiled view is a quarter of the pixels (the same camera at half
+    # the resolution): the profiler's host-side processing of an 800x800
+    # view's ~195k device events took ~70 s of the smoke's time limit
+    half = RES // 2
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        view()
+        compose.compose_image(params, cfg, pose, intr / 2, half, half, feats, **kw)
+        torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
     busy = busy_ms(prof)
     by_name = collections.Counter()
     for name, ms in events:
         by_name[name] += ms
-    print(f"[compose-profile] under torch.profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}; "
-          f"idle {1 - busy / wall:.1%}), {len(events)} device events")
+    print(f"[compose-profile] a {half}x{half} composed view under torch.profiler: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), {len(events)} device events")
     for name, ms in by_name.most_common(6):
         print(f"[compose-profile]   {ms:8.2f} ms {ms / busy:6.1%}  {name[:110]}")
     ms = sum(v for k, v in by_name.items() if "composite_forward_kernel" in k)
@@ -2451,6 +2487,372 @@ def phase_voxel_profile(work: str, dev, smi: str):
         print(f"[voxel-profile]   {t:8.3f} ms/step {t / busy:6.1%}  {name[:110]}")
 
 
+DNERF_RES, DNERF_ITERS = 400, 500
+DNERF_VIEWS = (("train", 50), ("val", 4), ("test", 4))  # 500 steps = 10 epochs
+# the main run's time slots: 500 steps refresh one slot every 16, so 8 slots
+# are each refreshed 3-4 times (at the default 64, slots past t = 0.5 would
+# never be refreshed in 500 of the reference's 30000 steps)
+DNERF_SLOTS = 8
+DNERF_VARIANT_ITERS = {"basis": 30, "hyper": 30, "uniform": 20}
+DNERF_PSNR = 18.0  # the [dnerf] val gate
+DNERF_REF_LOSS, DNERF_REF_GRAD = 1e-4, 1e-2  # card fp32 step against the CPU's (phase 6's limits)
+
+
+def dnerf_sphere(t: float):
+    """The dynamic scene's sphere at time t: radius 0.6 (ngp units), moving
+    along x from -0.5 to 0.5, red below y = 0 and blue above."""
+    return ((-0.5 + t, 0.0, 0.0), 0.6, (0.9, 0.2, 0.1), (0.1, 0.3, 0.9))
+
+
+def write_dynamic_scene(root: str, scale: float):
+    """A D-NeRF blender-layout scene of the moving sphere at DNERF_RES^2:
+    DNERF_VIEWS views a split from random cameras at CAMERA_RADIUS, each
+    frame with its ``time`` (train and test evenly over [0, 1], val at the
+    middle of 4 quarters), RGBA with a transparent background. Frame names
+    are zero-padded, so the JSON order is the sorted order both packages'
+    providers agree on."""
+    import numpy as np
+
+    from focnerf_tpu_torch.core.camera import rand_poses
+    from focnerf_tpu_torch.data.png import write_image
+
+    rng = np.random.default_rng(11)
+    for split, n in DNERF_VIEWS:
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        times = (np.arange(n) + 0.5) / n if split == "val" else np.linspace(0.0, 1.0, n)
+        frames = []
+        for i, (pose, t) in enumerate(zip(rand_poses(rng, n, radius=CAMERA_RADIUS), times)):
+            rel = f"{split}/r_{i:03d}"
+            write_image(os.path.join(root, rel + ".png"),
+                        sphere_view(pose, 1.2 * DNERF_RES, (dnerf_sphere(float(t)),), res=DNERF_RES))
+            frames.append({"file_path": rel, "time": float(t), "transform_matrix": _ngp_to_nerf(pose, scale).tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 2 * math.atan(1 / 2.4), "frames": frames}, f)
+    return root
+
+
+def _faces(path: str) -> int:
+    with open(path) as f:
+        return sum(line.startswith("f ") for line in f)
+
+
+def phase_dnerf(work: str, dev, smi: str):
+    """``main_dnerf <scene> -O --dnerf_variant deform`` at full width for
+    DNERF_ITERS steps on the moving sphere, with its val split, then
+    ``--test`` from its checkpoint. Each step must launch the composite
+    forward at least once and the composite backward and the table gradient
+    exactly once; the loss must halve, the val PSNR reach DNERF_PSNR, the
+    time grid be refreshed (more than one slot non-zero), the meshes at
+    t = 0 and t = 1 and the checkpoint exist, and ``--test`` render every
+    test view (one composite launch per 4096-ray chunk) and the video; then
+    3 more steps under torch.profiler (``[dnerf-profile]``). Returns (the
+    training run's launches, the trainer)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps import main_dnerf
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.data.dnerf_provider import DNeRFDataset
+    from focnerf_tpu_torch.train.checkpoints import CheckpointManager
+    from focnerf_tpu_torch.train.dnerf_trainer import DNeRFTrainer
+
+    scene, ws = os.path.join(work, "dnerf_scene"), os.path.join(work, "dnerf_ws")
+    argv = [scene, "-O", "--dnerf_variant", "deform", "--workspace", ws, "--iters", str(DNERF_ITERS),
+            "--time_slots", str(DNERF_SLOTS), "--ckpt_interval", "1000"]
+    opt = parse_options(argv)
+    t0 = time.time()
+    write_dynamic_scene(scene, opt.scale)
+    print(f"[dnerf] moving-sphere scene: {', '.join(f'{n} {s}' for s, n in DNERF_VIEWS)} views of "
+          f"{DNERF_RES}x{DNERF_RES} written in {time.time() - t0:.1f} s")
+
+    ends, real = [], DNeRFTrainer._train_step
+
+    def timed(self, ds):  # the host clock at the end of every train step
+        out = real(self, ds)
+        ends.append(time.perf_counter())
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    DNeRFTrainer._train_step = timed
+    t0 = time.perf_counter()
+    try:
+        with SMClocks() as clocks:
+            trainer = main_dnerf.main(argv, device=dev)
+            torch.cuda.synchronize()
+    finally:
+        DNeRFTrainer._train_step = real
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = np.asarray(trainer.step_losses)
+    steps = len(losses)
+    dt = np.diff(np.asarray([t0] + ends)) * 1e3
+    warm = float(np.median(dt[DNERF_VIEWS[0][1]:]))  # after the first epoch
+    train_s = ends[-1] - t0
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    psnr = trainer.last_eval_results["PSNR"]
+    occ = trainer.occupancy
+    live = int((occ.density_grid.reshape(occ.density_grid.shape[0], -1) > 0).any(-1).sum())
+    grid_gib = occ.density_grid.numel() * 4 / 2**30
+    meshes = {t: glob.glob(os.path.join(ws, "meshes", f"dnerf_*_t{t}.obj")) for t in ("0.00", "1.00")}
+    faces = {t: _faces(p[0]) if p else 0 for t, p in meshes.items()}
+    ckpt = CheckpointManager(os.path.join(ws, "checkpoints")).latest_step()
+    print(f"[dnerf] main_dnerf -O --dnerf_variant deform --iters {DNERF_ITERS} --time_slots {DNERF_SLOTS}: {steps} "
+          f"steps of {opt.num_rays} rays in {train_s:.2f} s ({wall:.2f} s with loading, the val eval and the "
+          f"meshes): warm median {warm:.2f} ms/step (host clock between step ends, after the first epoch), mean "
+          f"{train_s / steps * 1e3:.2f}; peak memory {peak:.3f} GiB; {clocks.summary()} ({smi})")
+    print(f"[dnerf] loss first 50 steps {first:.5f}, last 50 {last:.5f}; val PSNR {psnr:.3f} dB ({DNERF_VIEWS[1][1]} "
+          f"views), SSIM {trainer.last_eval_results['SSIM']:.4f}; time grid {tuple(occ.density_grid.shape)} "
+          f"({grid_gib:.3f} GiB), iter_density {int(occ.iter_density)}, {live} of {occ.density_grid.shape[0]} slots "
+          f"non-zero, mean density {float(occ.mean_density):.4f}; skip-walk iterations per step mean "
+          f"{np.mean(trainer.march_iters):.1f}; launches {launches}; meshes t=0 {faces['0.00']} faces, t=1 "
+          f"{faces['1.00']} faces; checkpoint step {ckpt}")
+    if launches["hashgrid_table_grad"] != steps or launches["composite_rays_fused_backward"] != steps:
+        raise AssertionError(f"D-NeRF backward kernels launched {launches}, want once per step ({steps})")
+    if launches["composite_rays_fused"] < steps:
+        raise AssertionError(f"D-NeRF composite forward launched {launches} times in {steps} steps")
+    if steps != DNERF_ITERS or not np.isfinite(losses).all() or not last < 0.5 * first:
+        raise AssertionError(f"D-NeRF training did not learn: {steps} steps, loss {first} -> {last}")
+    if not psnr >= DNERF_PSNR:
+        raise AssertionError(f"D-NeRF val PSNR {psnr} dB after {steps} steps, want >= {DNERF_PSNR}")
+    if not (int(occ.iter_density) > 0 and live > 1):
+        raise AssertionError(f"the time grid was not refreshed: iter_density {int(occ.iter_density)}, {live} slots")
+    if not (all(meshes.values()) and ckpt == DNERF_ITERS):
+        raise AssertionError(f"D-NeRF outputs: meshes {meshes}, checkpoint step {ckpt}")
+
+    reset_counts()
+    t0 = time.time()
+    main_dnerf.main([scene, "--test", "-O", "--workspace", ws, "--time_slots", str(DNERF_SLOTS)], device=dev)
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    served = read_counts()
+    n_test = DNERF_VIEWS[2][1]
+    results = os.path.join(ws, "results")
+    renders = [os.path.join(results, f"dnerf_{v:04d}.png") for v in range(n_test)]
+    video = os.path.join(results, "dnerf.mp4")
+    want = n_test * math.ceil(DNERF_RES * DNERF_RES / CHUNK)
+    print(f"[dnerf] main_dnerf --test -O from the checkpoint: {n_test} views across time in {serve_s:.2f} s "
+          f"({serve_s / n_test:.3f} s/view), launches {served}; video "
+          f"{'dnerf.mp4 ' + str(os.path.getsize(video)) + ' B' if os.path.exists(video) else 'as PNG frames'}")
+    if not all(os.path.exists(p) for p in renders) or served["composite_rays_fused"] != want:
+        raise AssertionError(f"D-NeRF --test: renders {renders}, launches {served}, want {want} composites")
+    profiled_steps(trainer, DNeRFDataset(opt.dataset_options(), split="train", device=dev), 3, "dnerf-profile")
+    return launches, trainer
+
+
+def phase_dnerf_variants(work: str, dev, smi: str):
+    """``basis`` and ``hyper`` under ``-O`` and ``deform`` without ``-O``
+    (uniform, 512 samples a ray), each for a few tens of steps at full
+    width on [dnerf]'s scene, through main_dnerf's trainer: ms/step (host,
+    synchronized), peak memory, launches; the loss must be finite and its
+    last 10 steps under its first 10. The ``-O`` runs use [dnerf]'s
+    DNERF_SLOTS time slots, each refreshed once before the first step (a
+    fresh grid is empty in every slot but the first for 16 steps a slot,
+    longer than these runs)."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps import main_dnerf
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.data.dnerf_provider import DNeRFDataset
+
+    scene = os.path.join(work, "dnerf_scene")
+    for name, flags in (("basis", ["-O", "--basis"]), ("hyper", ["-O", "--hyper"]), ("uniform", [])):
+        iters = DNERF_VARIANT_ITERS[name]
+        opt = parse_options([scene, "--workspace", os.path.join(work, f"dnerf_{name}"), "--iters", str(iters),
+                             "--time_slots", str(DNERF_SLOTS)] + flags)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = main_dnerf.build_trainer(opt, opt.dnerf_config(), dev)
+        ds = DNeRFDataset(opt.dataset_options(), split="train", device=dev)
+        if trainer.occupancy is not None:  # every slot refreshed once, as after 16 steps a slot
+            for slot in range(trainer.time_slots):
+                trainer.global_step = slot * trainer.update_extra_interval
+                trainer._maybe_update_occupancy()
+            trainer.global_step = 0
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, losses = [], []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step_once(ds)["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        grid = "" if trainer.occupancy is None else f", time grid {tuple(trainer.occupancy.density_grid.shape)}"
+        samples = f"{opt.num_steps} samples a ray" if trainer.occupancy is None else f"slab {opt.train_slab}"
+        print(f"[dnerf-variants] {opt.dnerf_variant} {'-O' if opt.cuda_ray else '(no -O)'}, {samples}: {iters} steps, "
+              f"median {np.median(ms[5:]):.2f} ms/step (synchronized; step 1 {ms[0]:.1f} ms), peak memory "
+              f"{peak:.3f} GiB{grid}; loss first 10 {first:.5f}, last 10 {last:.5f}; launches {launches} ({smi})")
+        if not (np.isfinite(losses).all() and last < first):
+            raise AssertionError(f"dnerf {name}: loss {first} -> {last}")
+        if launches["composite_rays_fused_backward"] != iters or launches["hashgrid_table_grad"] != iters:
+            raise AssertionError(f"dnerf {name}: launches {launches}, want each backward once a step")
+        del trainer, ds
+
+
+def phase_dnerf_reference(trainer, dev):
+    """One train step of each D-NeRF variant on the card (kernels) and on
+    the CPU (plain versions), same params, batch, occupancy and draws, fp32:
+    deform (the trained params) on the time slot's skip walk and on 128
+    uniform samples, basis and hyper (seeded params) on the same skip walk;
+    the loss and every parameter's gradient, the deformation and hyper
+    nets' through the position gradient (limits DNERF_REF_LOSS and
+    DNERF_REF_GRAD, rel L2 per leaf). Then one 64x64 view at t = 0.5
+    through the slot's bitfield (ladder march), card against CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.core.camera import rand_poses
+    from focnerf_tpu_torch.models.dnerf import init_dnerf_params
+    from focnerf_tpu_torch.render.dnerf_renderer import render_image_dnerf, time_occupancy_bitfield
+    from focnerf_tpu_torch.train.dnerf_steps import dnerf_loss, dnerf_loss_occupancy, dnerf_step_draws
+    from focnerf_tpu_torch.train.state import clone_params, param_leaves
+
+    t = 0.4
+    cfg32 = dataclasses.replace(trainer.cfg, compute_dtype=torch.float32)
+    n, slab = 512, 64
+    rng = np.random.default_rng(9)
+    pose = rand_poses(rng, 1, radius=CAMERA_RADIUS)[0]
+    d = rng.normal(size=(n, 3)).astype(np.float32) * 0.15 + pose[:3, 2]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    batch = {
+        "rays_o": torch.from_numpy(np.broadcast_to(pose[:3, 3], d.shape).astype(np.float32).copy()),
+        "rays_d": torch.from_numpy(d.astype(np.float32)),
+        "pixels": torch.from_numpy(rng.uniform(0, 1, (n, 4)).astype(np.float32)),
+        "time": torch.tensor(t),
+    }
+    skip = trainer._occ_bits_for_batch({"time": torch.tensor(t, device=dev)}).cpu()
+    occ_kw = dict(dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps, slab=slab, skip_field=True)
+    trained = {k: [w.detach().cpu() for w in v] if isinstance(v, list) else v.detach().cpu()
+               for k, v in trainer.state.params.items()}
+    cases = {"deform -O step (trained)": (cfg32, trained, occ_kw),
+             "deform uniform step, 128 samples (trained)": (cfg32, trained, dict(num_steps=128))}
+    for variant in ("basis", "hyper"):
+        # seeded, with the coarse half of the levels widened from U(-1e-4,
+        # 1e-4) to U(-0.1, 0.1): at the initial scale the nets' gradients are
+        # sums of terms near the rounding level of the features. The fine
+        # levels stay faint, as in tests/test_torch_dnerf.py: with U(-0.1,
+        # 0.1) there (scale up to 4095 in five dimensions), the 1-ulp
+        # differences of the lifted coordinates move hyper_net's gradient by
+        # 1.1e-2 rel L2 between card and CPU on an H100
+        vcfg = dataclasses.replace(cfg32, variant=variant)
+        seeded = init_dnerf_params(torch.Generator().manual_seed(1), vcfg, "cpu")
+        seeded["grid"][: vcfg.field_spec.offsets[8]] *= 1e3
+        cases[f"{variant} -O step (seeded, levels 0-7 U(-0.1, 0.1))"] = (vcfg, seeded, occ_kw)
+    for label, (cfg, params0, kw) in cases.items():
+        draws = dnerf_step_draws(torch.Generator().manual_seed(3), n, "cpu", num_steps=kw.get("num_steps", 0))
+        out = {}
+        for where in ("cuda", "cpu"):
+            to = lambda x: x.to(where)  # noqa: E731
+            params = clone_params({k: [to(w) for w in v] if isinstance(v, list) else to(v) for k, v in params0.items()},
+                                  requires_grad=True)
+            tb, td = {k: to(v) for k, v in batch.items()}, {k: to(v) for k, v in draws.items()}
+            reset_counts()
+            if "num_steps" in kw:
+                loss, _ = dnerf_loss(params, cfg, tb, td, **kw)
+            else:
+                loss, _ = dnerf_loss_occupancy(params, cfg, tb, to(skip), td, **kw)
+            loss.backward()
+            if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
+                                                         composite_rays_fused_backward=1, hashgrid_table_grad=1):
+                raise AssertionError(f"dnerf reference {label} on the card launched {read_counts()}")
+            out[where] = (float(loss.detach()), {k: [w.grad.cpu() for w in (v if isinstance(v, list) else [v])]
+                                                 for k, v in params.items()})
+        (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+        loss_rel = abs(lg - lc) / abs(lc)
+        rel = {k: max(float((a - b).norm() / b.norm().clamp(min=1e-30)) for a, b in zip(gg[k], gc[k])) for k in gc}
+        net = next(k for k in gc if k in ("deform_net", "basis_net", "hyper_net"))
+        print(f"[dnerf-reference] train step: {label}, {n} rays at t={t}, fp32, card vs CPU: loss {lg:.6g} vs {lc:.6g} "
+              f"(rel {loss_rel:.3g}, limit {DNERF_REF_LOSS}); gradient rel L2 error per key "
+              + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + f" (limit {DNERF_REF_GRAD}); |{net} grad| "
+              f"{max(float(a.abs().max()) for a in gc[net]):.3g}")
+        # sums in other orders, atomics and CUDA vs libm exp/sin: the warped
+        # points differ in their last bits, which the finest level (scale
+        # 4095 at bound 2) moves its weights by ~2.4e-4
+        if not (loss_rel <= DNERF_REF_LOSS and max(rel.values()) <= DNERF_REF_GRAD):
+            raise AssertionError(f"card and CPU D-NeRF train steps disagree: {label}")
+        if not all(float(a.abs().max()) > 0 for a in gc[net]):
+            raise AssertionError(f"dnerf reference {label}: {net} got no gradient")
+
+    ema = trainer.state.ema_params
+    size = 64
+    intr = np.array([1.2 * size, 1.2 * size, size / 2, size / 2], np.float32)
+    kw = dict(dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps, slab=128, max_ray_batch=CHUNK, bg_color=1.0)
+    bits = time_occupancy_bitfield(trainer.occupancy, 0.5, trainer.density_thresh)
+    reset_counts()
+    gi, gd = render_image_dnerf(ema, cfg32, pose, intr, size, size, 0.5, occ_bits=bits, **kw)
+    card = read_counts()["composite_rays_fused"]
+    ci, cd = render_image_dnerf({k: [w.cpu() for w in v] if isinstance(v, list) else v.cpu() for k, v in ema.items()},
+                                cfg32, pose, intr, size, size, 0.5, occ_bits=bits.cpu(), **kw)
+    err, derr = (gi.cpu() - ci).abs(), (gd.cpu() - cd).abs()
+    print(f"[dnerf-reference] {size}x{size} view at t=0.5 through the slot's bitfield (ladder), card vs CPU: image "
+          f"mean abs {float(err.mean()):.3g} (limit 1e-4), max {float(err.max()):.3g}; depth mean abs "
+          f"{float(derr.mean()):.3g}; object share {float((ci.min(-1).values < 0.9).float().mean()):.3f}; composite "
+          f"launches on the card {card}")
+    if not (float(err.mean()) <= 1e-4 and float(derr.mean()) <= 1e-4 and card == 1):
+        raise AssertionError("card and CPU D-NeRF views disagree")
+    if not float((ci.min(-1).values < 0.9).float().mean()) > 0.01:
+        raise AssertionError("the D-NeRF reference view shows no object")
+
+
+def phase_dnerf_kernel(dev):
+    """The table gradient on the hyper field's 5-D layout (16 levels x 32
+    corners, J = 512 columns a point) of 4096 x 128 points (the rays'
+    points with two lifted coordinates), held against ``table_grad_plain``
+    (limit 1e-5 of the largest row sum) and timed beside the plain version
+    and ``index_add_`` alone; with its byte bound."""
+    import torch
+
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.ops import hashgrid as thg
+    from focnerf_tpu_torch.utils.measure import device_ms
+
+    cfg = parse_options(["scene", "-O", "--hyper"]).dnerf_config()
+    spec = cfg.field_spec
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = ray_points01(cfg, 128, g)
+    x = torch.cat([x, torch.sigmoid(torch.randn((x.shape[0], cfg.hyper_dim), generator=g, device=dev))], -1)
+    table = torch.zeros((spec.table_rows, spec.level_dim), device=dev)
+    _, rows, weights = thg._encode(table, x, spec, None, residuals=True)
+    del table
+    cot = torch.randn((x.shape[0], spec.output_dim), generator=g, device=dev)
+    cols, n_rows, C = thg.col_levels(spec, False), spec.table_rows, spec.level_dim
+    m, J = rows.shape
+    col_level = torch.tensor(cols, dtype=torch.int32, device=dev)
+    got = thg.hashgrid_table_grad(rows, weights, cot, cols, n_rows)
+    want = thg.table_grad_plain(rows, weights, cot, col_level, n_rows, C)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    zeros_agree = torch.equal(got == 0, want == 0)
+    touched = int((want != 0).any(-1).sum())
+    del got, want
+    contrib = (weights[..., None] * cot.reshape(m, -1, C).index_select(1, col_level)).reshape(-1, C)
+    flat_rows = rows.reshape(-1)
+    with SMClocks() as clocks:
+        ms, span = device_ms(lambda: thg.hashgrid_table_grad(rows, weights, cot, cols, n_rows), iters=10)
+        plain_ms, _ = device_ms(lambda: thg.table_grad_plain(rows, weights, cot, col_level, n_rows, C), iters=10)
+        lib_ms, _ = device_ms(lambda: torch.zeros((n_rows, C), device=dev).index_add_(0, flat_rows, contrib), iters=10)
+    nbytes = m * J * 8 + cot.numel() * 4 + n_rows * C * 4 + J * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = m * J * C * 2 / FP32_OPS_PER_S * 1e3
+    print(f"[kernel-dnerf] hashgrid_table_grad on the hyper field's 5-D layout [{m} points x {J} columns (16 levels x "
+          f"32 corners) -> {n_rows} x {C}]: max_abs_err {rel * scale:.3g}, {rel:.3g} of max|d_table| {scale:.3g} "
+          f"(limit 1e-5); {touched} rows touched; device {ms:.5f} ms (call span {span:.4f} ms, zero fill included), "
+          f"plain {plain_ms:.5f} ms, index_add_ alone {lib_ms:.5f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
+          f"({'bytes' if bytes_ms >= ops_ms else 'operations'}, {nbytes} B); {clocks.summary()}")
+    if not (rel <= 1e-5 and zeros_agree):
+        raise AssertionError(f"table-gradient kernel disagrees with index_add_ on the 5-D layout: {rel}")
+
+
 def main() -> int:
     import torch
 
@@ -2476,6 +2878,9 @@ def main() -> int:
     kernels = phase("kernels", lambda: [*phase_composite_kernel(), phase_composite_backward_kernel(),
                                         phase_table_grad_kernel(cfg)])
     phase("kernels at the uniform and -O2 shapes", phase_uniform_shapes, cfg)
+    # before any torch.profiler run with CPU activity: a CUDA-only one
+    # after those recorded no device time on the card
+    phase("dnerf kernel", phase_dnerf_kernel, torch.device("cuda"))
     work = os.path.join(HERE, "workspace_chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     dev = torch.device("cuda")
@@ -2503,6 +2908,10 @@ def main() -> int:
     phase("voxel reference", phase_voxel_reference, dev)
     voxel_launches = phase("voxel", phase_voxel, work, dev, smi)
     phase("voxel profile", phase_voxel_profile, work, dev, smi)
+    dnerf_launches, dnerf_trainer = phase("dnerf", phase_dnerf, work, dev, smi)
+    phase("dnerf reference", phase_dnerf_reference, dnerf_trainer, dev)
+    del dnerf_trainer
+    phase("dnerf variants", phase_dnerf_variants, work, dev, smi)
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
     line = [{**k, "launches": launches[k["name"]], "launches_compose": composed["combined"][k["name"]],
@@ -2510,7 +2919,7 @@ def main() -> int:
              "launches_baked_compose": baked_runs["combined"][k["name"]],
              "launches_baked_edit": baked_runs["editable"][k["name"]],
              "launches_voxel": voxel_launches[k["name"]], "launches_uniform": uniform_launches[k["name"]],
-             "launches_o2": o2_launches[k["name"]]} for k in kernels]
+             "launches_o2": o2_launches[k["name"]], "launches_dnerf": dnerf_launches[k["name"]]} for k in kernels]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

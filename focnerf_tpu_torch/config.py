@@ -6,9 +6,10 @@ command line written for the JAX package parses here), the same ``-O`` and
 returning the port's types. ``-O2`` keeps JAX's override semantics: an
 explicit ``--grad_level_phases 0`` becomes 2 and an empty ``--c2f`` the
 default schedule (with at least 12 levels). Options of features the port
-has not ported yet (rand-pose, D-NeRF) are parsed and carried; the port's
-trainer refuses rand-pose, and ``main_nerf`` says so for the two options it
-ignores (``--grid_int8``, ``--no-preload``).
+has not ported yet (rand-pose) are parsed and carried; the port's trainer
+refuses rand-pose, and ``main_nerf`` says so for the two options it ignores
+(``--grid_int8``, ``--no-preload``). ``dnerf_config`` gives ``main_dnerf``'s
+field.
 """
 
 from __future__ import annotations
@@ -156,6 +157,22 @@ class Options:
             stochastic_min_size=self.stochastic_min_size,
             num_levels=self.grid_levels,
             level_dim=self.grid_featdim,
+        )
+
+    def dnerf_config(self):
+        """The D-NeRF field main_dnerf trains (focnerf_tpu/config.py:257-270):
+        no object features, bf16 under ``--fp16``. It carries the
+        stochastic-corner fields, but its encode is exact (models/dnerf.py)."""
+        from focnerf_tpu_torch.models.dnerf import DNeRFConfig
+
+        return DNeRFConfig(
+            bound=self.bound,
+            variant=self.dnerf_variant,
+            use_objfeat=False,
+            bg_radius=self.bg_radius,
+            compute_dtype=torch.bfloat16 if self.fp16 else torch.float32,
+            stochastic_corners=self.stochastic_corners,
+            stochastic_min_size=self.stochastic_min_size,
         )
 
     def dataset_options(self):

@@ -15,9 +15,14 @@
   - ``voxel_field_from_jax``, ``vm_field_from_jax``, ``dyn_field_from_jax``,
     ``kplanes_field_from_jax``: the voxel families' parameters (a raw grid,
     or the family's NamedTuple of arrays) -> the port's tensors;
-  - ``config_to_dict``/``config_from_dict``: ``NeRFConfig`` <-> the
-    ``model_config.json`` dict that focnerf_tpu/train/checkpoints.py:29-63
-    writes.
+  - ``dnerf_params_from_jax``: the D-NeRF param pytree (``grid``, 3-D or
+    the hyper variant's 5-D; ``deform_net``/``basis_net``/``hyper_net``;
+    ``sigma_net``, ``color_net``; models/dnerf.py:66-106) -> the port's;
+  - ``time_occupancy_from_jax``: ``density_grid`` [T_slots, CAS, H^3],
+    ``mean_density``, ``iter_density`` -> ``TimeOccupancyState``;
+  - ``config_to_dict``/``config_from_dict``: ``NeRFConfig`` or
+    ``DNeRFConfig`` <-> the ``model_config.json`` dict that
+    focnerf_tpu/train/checkpoints.py:29-63 writes (``__class__`` names it).
 
 Only numpy arrays cross the boundary; this module imports no JAX.
 """
@@ -42,19 +47,22 @@ def config_to_dict(cfg: NeRFConfig) -> dict:
     d["compute_dtype"] = "bfloat16" if cfg.compute_dtype == torch.bfloat16 else "float32"
     if d["grad_levels"] is not None:
         d["grad_levels"] = list(d["grad_levels"])
-    d["__class__"] = "NeRFConfig"
+    d["__class__"] = type(cfg).__name__
     return d
 
 
 def config_from_dict(d: Mapping[str, Any]) -> NeRFConfig:
+    from focnerf_tpu_torch.models.dnerf import DNeRFConfig
+
     d = dict(d)
     cls_name = d.pop("__class__", "NeRFConfig")
-    if cls_name != "NeRFConfig":
-        raise ValueError(f"only NeRFConfig checkpoints are ported, got {cls_name}")
+    classes = {"NeRFConfig": NeRFConfig, "DNeRFConfig": DNeRFConfig}
+    if cls_name not in classes:
+        raise ValueError(f"only NeRFConfig and DNeRFConfig checkpoints are ported, got {cls_name}")
     d["compute_dtype"] = _DTYPES[d.get("compute_dtype", "float32")]
     if d.get("grad_levels") is not None:
         d["grad_levels"] = tuple(d["grad_levels"])
-    return NeRFConfig(**d)
+    return classes[cls_name](**d)
 
 
 def _tensor(a, shape, name: str, device) -> torch.Tensor:
@@ -71,7 +79,21 @@ def params_from_jax(tree: Mapping[str, Any], cfg: NeRFConfig, device) -> Params:
     if cfg.bg_radius > 0:
         bg = cfg.bg_grid_spec
         params["bg_grid"] = _tensor(tree["bg_grid"], (bg.table_rows, bg.level_dim), "bg_grid", device)
-    for name, dims in cfg.net_dims().items():
+    _nets_from_jax(params, tree, cfg.net_dims(), device)
+    return params
+
+
+def dnerf_params_from_jax(tree: Mapping[str, Any], cfg, device) -> Params:
+    """JAX D-NeRF param pytree (numpy leaves) -> the port's params on
+    ``device``, checked against the ``DNeRFConfig``'s shapes."""
+    spec = cfg.field_spec
+    params: Params = {"grid": _tensor(tree["grid"], (spec.table_rows, spec.level_dim), "grid", device)}
+    _nets_from_jax(params, tree, cfg.net_dims(), device)
+    return params
+
+
+def _nets_from_jax(params: Params, tree, net_dims: dict, device):
+    for name, dims in net_dims.items():
         ws = list(tree[name])
         if len(ws) != len(dims) - 1:
             raise ValueError(f"{name}: expected {len(dims) - 1} layers, got {len(ws)}")
@@ -79,7 +101,19 @@ def params_from_jax(tree: Mapping[str, Any], cfg: NeRFConfig, device) -> Params:
             _tensor(w, (i, o), f"{name}[{k}]", device)
             for k, (w, i, o) in enumerate(zip(ws, dims[:-1], dims[1:]))
         ]
-    return params
+
+
+def time_occupancy_from_jax(occ: Mapping[str, Any], bound: float, time_slots: int, device,
+                            grid_size: int = 128):
+    """JAX TimeOccupancyState fields (numpy) -> the port's ``TimeOccupancyState``."""
+    from focnerf_tpu_torch.render.dnerf_renderer import TimeOccupancyState
+
+    shape = (time_slots, cascade_count(bound), grid_size**3)
+    return TimeOccupancyState(
+        density_grid=_tensor(occ["density_grid"], shape, "density_grid", device),
+        mean_density=_tensor(occ["mean_density"], (), "mean_density", device),
+        iter_density=torch.as_tensor(np.array(occ["iter_density"]), dtype=torch.int32).to(device),
+    )
 
 
 def occupancy_from_jax(occ: Mapping[str, Any], bound: float, device, grid_size: int = 128) -> OccupancyState:
@@ -98,10 +132,14 @@ def train_state_from_jax(
     """The JAX TrainState's pieces (numpy pytrees and ints; ``mu``, ``nu``,
     ``count`` from optax's ScaleByAdamState) -> the port's ``TrainState`` on
     ``device``. ``state_kw`` (lr, iters, lr_net, warmup, grad_clip,
-    ema_decay) must be the JAX run's optimizer settings."""
-    state = TrainState(params_from_jax(params, cfg, device), **state_kw)
-    moments = zip(param_leaves(params_from_jax(mu, cfg, device)),
-                  param_leaves(params_from_jax(nu, cfg, device)))
+    ema_decay) must be the JAX run's optimizer settings. A ``DNeRFConfig``
+    takes the D-NeRF params' layout."""
+    from focnerf_tpu_torch.models.dnerf import DNeRFConfig
+
+    params_from = dnerf_params_from_jax if isinstance(cfg, DNeRFConfig) else params_from_jax
+    state = TrainState(params_from(params, cfg, device), **state_kw)
+    moments = zip(param_leaves(params_from(mu, cfg, device)),
+                  param_leaves(params_from(nu, cfg, device)))
     opt = state.optimizer.state_dict()
     opt["state"] = {
         i: {"step": torch.tensor(float(count)), "exp_avg": m, "exp_avg_sq": v}
@@ -109,8 +147,8 @@ def train_state_from_jax(
     }
     state.load_state_dict({
         "step": int(step),
-        "params": params_from_jax(params, cfg, device),
-        "ema_params": params_from_jax(ema_params, cfg, device),
+        "params": params_from(params, cfg, device),
+        "ema_params": params_from(ema_params, cfg, device),
         "ema_count": int(ema_count),
         "optimizer": opt,
     })

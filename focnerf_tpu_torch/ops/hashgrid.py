@@ -19,12 +19,17 @@ VJP ``_encode_sorted_bwd``), in plain PyTorch:
     equal to their trilinear weight (D Bernoulli(frac_d) draws), each of
     weight 1/K.
 
-The table gradient is ``HashGridEncode``'s backward, as the JAX custom VJP's
-(position gradients are dropped): ``hashgrid_table_grad`` scatters
-``weights * g`` into the table rows the forward read. On CPU tensors that is
-``index_add_``; on CUDA tensors it launches ``csrc/hashgrid_bwd.cu`` (the
-port of ``hashgrid_pallas.py::hashgrid_bwd_level``, all levels in one
-launch, a warp's duplicate rows summed before its atomics) or raises.
+The table gradient is ``HashGridEncode``'s backward, as the JAX custom VJP's:
+``hashgrid_table_grad`` scatters ``weights * g`` into the table rows the
+forward read. On CPU tensors that is ``index_add_``; on CUDA tensors it
+launches ``csrc/hashgrid_bwd.cu`` (the port of
+``hashgrid_pallas.py::hashgrid_bwd_level``, all levels in one launch, a
+warp's duplicate rows summed before its atomics) or raises.
+
+When the points require grad, the backward also gives them theirs
+(``hashgrid_input_grad``, plain torch on either device): JAX's
+``input_grads=True`` encode, which the D-NeRF fields learn through. Such an
+encode is always exact, as JAX's is: it draws no corners.
 
 ``-O2``'s two levers and the TV term, as in the JAX twin:
 
@@ -171,9 +176,7 @@ def _level_corner_indices(x01: torch.Tensor, spec: HashGridSpec, lvl: int):
     pos_grid = torch.floor(pos)
     frac = pos - pos_grid
     base = pos_grid.to(torch.int64)  # [N, D]
-    # corner c has bit d -> +1 in dim d; built on the device (no host copy)
-    corners = torch.arange(1 << D, device=x01.device)
-    bits = (corners[:, None] >> torch.arange(D, device=x01.device)) & 1  # [2^D, D]
+    bits = _corner_bits(D, x01.device)  # built on the device (no host copy)
     w = torch.where(bits[None] > 0, frac[:, None, :], 1.0 - frac[:, None, :]).prod(-1)
     rows = _coords_to_rows(base[:, None, :] + bits[None], spec, lvl)
     return rows, w
@@ -255,12 +258,17 @@ def _encode(table, x01, spec: HashGridSpec, u: Optional[torch.Tensor], residuals
 
 class HashGridEncode(torch.autograd.Function):
     """Encode with the table gradient of the JAX custom VJP: the forward
-    saves (rows, weights); the backward is ``hashgrid_table_grad``. Points
-    and draws get no gradient."""
+    saves (rows, weights); the backward is ``hashgrid_table_grad``. When
+    ``x01`` requires grad (then ``u`` must be None) the backward also
+    returns its gradient, ``hashgrid_input_grad``. Draws get none."""
 
     @staticmethod
     def forward(ctx, table, x01, u, spec):
         out, rows, weights = _encode(table, x01, spec, u, residuals=True)
+        ctx.spec = spec
+        ctx.input_grad = ctx.needs_input_grad[1]
+        if ctx.input_grad and u is not None:
+            raise ValueError("position gradients need the exact encode: pass no corner draws u")
         cols = col_levels(spec, u is not None)
         if spec.grad_levels is not None:
             # the backward reads only the live levels' columns (JAX's col_sel)
@@ -269,7 +277,8 @@ class HashGridEncode(torch.autograd.Function):
             rows = rows.index_select(1, sel)
             weights = weights.index_select(1, sel)
             cols = tuple(cols[j] for j in live)
-        ctx.save_for_backward(rows, weights)
+        ctx.save_for_backward(rows, weights, table if ctx.input_grad else None,
+                              x01 if ctx.input_grad else None)
         ctx.cols = cols
         ctx.n_rows = table.shape[0]
         ctx.level_dim = spec.level_dim
@@ -277,11 +286,65 @@ class HashGridEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        rows, weights = ctx.saved_tensors
-        if not ctx.cols:  # no live level: every row's gradient is 0
-            return torch.zeros((ctx.n_rows, ctx.level_dim), device=g.device), None, None, None
-        d_table = hashgrid_table_grad(rows, weights, g, ctx.cols, ctx.n_rows, level_dim=ctx.level_dim)
-        return d_table, None, None, None
+        rows, weights, table, x01 = ctx.saved_tensors
+        d_table = d_x = None
+        if ctx.needs_input_grad[0]:
+            if not ctx.cols:  # no live level: every row's gradient is 0
+                d_table = torch.zeros((ctx.n_rows, ctx.level_dim), device=g.device)
+            else:
+                d_table = hashgrid_table_grad(rows, weights, g, ctx.cols, ctx.n_rows,
+                                              level_dim=ctx.level_dim)
+        if ctx.input_grad:
+            # the position gradient reads every level's rows: recomputed when
+            # the forward kept only the live levels'
+            full = rows if ctx.spec.grad_levels is None else None
+            d_x = hashgrid_input_grad(table, x01, g, ctx.spec, rows=full).to(x01.dtype)
+        return d_table, d_x, None, None
+
+
+def _corner_bits(D: int, device) -> torch.Tensor:
+    """[2^D, D] int64: corner c has bit d -> +1 in dim d."""
+    corners = torch.arange(1 << D, device=device)
+    return (corners[:, None] >> torch.arange(D, device=device)) & 1
+
+
+def hashgrid_input_grad(table: torch.Tensor, x01: torch.Tensor, g: torch.Tensor, spec: HashGridSpec,
+                        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """d(loss)/d(x01), shaped as ``x01``, of the exact encode, from the
+    output cotangent g [N, L*C]: for every level l and corner j,
+    ``(g_l . table[rows_j]) * dw_j/dx``. The 2^D-linear weight is a product
+    over axes, w_j = prod_d f_jd with f_jd = frac_d or 1 - frac_d, so
+    ``dw_j/dx_d = scale_l * (+-1) * prod_{e != d} f_je``. Points outside
+    [0, 1]^D get exactly 0 (their weights are 0 in the forward, as JAX masks
+    them). ``rows`` [N, L * 2^D]: the forward's exact-layout rows (None:
+    recomputed). JAX leaves this to XLA; here it is plain torch on either
+    device (the reference computes it in gridencoder.cu's
+    ``kernel_input_backward``)."""
+    D, K, C = spec.input_dim, 1 << spec.input_dim, spec.level_dim
+    x = x01.detach().reshape(-1, D).float()
+    n = x.shape[0]
+    oob = ((x < 0.0) | (x > 1.0)).any(-1)
+    x = torch.where(oob[:, None], torch.zeros_like(x), x)
+    g = g.reshape(n, -1).float()
+    bits = _corner_bits(D, x.device)  # [K, D]
+    sign = (bits * 2 - 1).float()
+    gx = torch.zeros_like(x)
+    for lvl in range(spec.num_levels):
+        scale = _level_scale(spec, lvl)
+        pos = x * scale + 0.5
+        pos_grid = torch.floor(pos)
+        frac = pos - pos_grid
+        if rows is None:
+            r = _coords_to_rows(pos_grid.to(torch.int64)[:, None, :] + bits[None], spec, lvl)
+        else:
+            r = rows[:, lvl * K : (lvl + 1) * K].long()
+        gv = (table[r].float() * g[:, None, lvl * C : (lvl + 1) * C]).sum(-1)  # [N, K]
+        f = torch.where(bits[None] > 0, frac[:, None, :], 1.0 - frac[:, None, :])  # [N, K, D]
+        for d in range(D):
+            others = torch.cat([f[..., :d], f[..., d + 1 :]], -1).prod(-1)  # [N, K]
+            gx[:, d] += scale * (gv * others * sign[:, d]).sum(-1)
+    gx = torch.where(oob[:, None], torch.zeros_like(gx), gx)
+    return gx.reshape(x01.shape)
 
 
 def hashgrid_encode(
@@ -289,15 +352,18 @@ def hashgrid_encode(
 ) -> torch.Tensor:
     """Encode points x01 [..., D] in [0, 1] -> features [..., L * C].
 
-    Exact unless ``u`` is given and ``spec.stochastic_k > 0`` (training):
-    ``u`` [N, n_stoch, K, D] holds the corner draws, N the flattened point
-    count, in the JAX package's shape and order. Differentiable in the table
-    (``HashGridEncode``) when autograd needs it.
+    Exact unless ``u`` is given, ``spec.stochastic_k > 0`` and ``x01``
+    needs no gradient (training): ``u`` [N, n_stoch, K, D] holds the corner
+    draws, N the flattened point count, in the JAX package's shape and
+    order. Differentiable (``HashGridEncode``) when autograd needs the
+    table's or the points' gradient; the points' makes the encode exact, as
+    JAX's ``input_grads=True`` does.
     """
     prefix = x01.shape[:-1]
-    if spec.stochastic_k <= 0:
+    grad = torch.is_grad_enabled() and (table.requires_grad or x01.requires_grad)
+    if spec.stochastic_k <= 0 or (grad and x01.requires_grad):
         u = None
-    if table.requires_grad and torch.is_grad_enabled():
+    if grad:
         out = HashGridEncode.apply(table, x01, u, spec)
     else:
         out, _, _ = _encode(table, x01, spec, u, residuals=False)

@@ -13,6 +13,13 @@ view renders as ``_render_view`` (:378-418) has it: with the occupancy
 grid, the ``iter``/``iter_dev`` eval renderers go through
 render/iterative.py, everything else through the oneshot ``render_image``.
 
+A subclass (the D-NeRF trainer) replaces these hooks, as the JAX
+``Trainer``'s subclasses do: ``_create_state`` (the params and their
+``TrainState``), ``_init_occupancy``, ``_mark_untrained``,
+``_maybe_update_occupancy``, ``_occ_bits_for_batch(batch)``, ``_step``
+(one optimizer step on a drawn batch), ``_render_view``/``_render_kwargs``
+and ``_mesh_density``.
+
 Every draw comes from one ``torch.Generator`` on the training device,
 seeded by ``seed``. The CLIP rand-pose branch is not ported and is refused
 when asked for. ``steps_per_dispatch`` > 1 runs one step per dispatch (its
@@ -161,12 +168,10 @@ class Trainer:
             self.log("[WARN] steps_per_dispatch > 1 (fused dispatch) is not ported; "
                      "running one step per dispatch")
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        params = init_nerf_params(torch.Generator().manual_seed(seed), cfg, self.device)
-        self.state = TrainState(
-            params, lr=lr, iters=iters, lr_net=lr_net, warmup=lr_warmup, grad_clip=grad_clip,
-            ema_decay=ema_decay,
-        )
-        self.occupancy = init_occupancy(cfg.bound, self.device) if use_occupancy else None
+        self._state_kw = dict(lr=lr, iters=iters, lr_net=lr_net, warmup=lr_warmup, grad_clip=grad_clip,
+                              ema_decay=ema_decay)
+        self.state = self._create_state(seed)
+        self.occupancy = self._init_occupancy() if use_occupancy else None
         self.metrics = [PSNRMeter(), SSIMMeter(), LPIPSMeter()]
 
         ckpt_dir = os.path.join(workspace, "checkpoints")
@@ -202,6 +207,15 @@ class Trainer:
                 f"unknown checkpoint mode {use_checkpoint!r}; expected "
                 "scratch | latest | latest_model | best | <path>"
             )
+
+    # ------------------------------------------------------------------ hooks
+    def _create_state(self, seed: int) -> TrainState:
+        """The seeded params (drawn on the CPU) in a fresh ``TrainState``."""
+        params = init_nerf_params(torch.Generator().manual_seed(seed), self.cfg, self.device)
+        return TrainState(params, **self._state_kw)
+
+    def _init_occupancy(self):
+        return init_occupancy(self.cfg.bound, self.device)
 
     def _adopt(self, restored: dict, weights_only: bool = False):
         self.state.load_state_dict(restored, weights_only=weights_only)
@@ -253,7 +267,9 @@ class Trainer:
                      f"bucket {self.active_slab} => {new}")
             self.active_slab = new
 
-    def _occ_bits_for_batch(self):
+    def _occ_bits_for_batch(self, batch=None):
+        """The bitfield (or skip field) the step marches through; one grid
+        serves every batch here."""
         if self._occ_cache is None:
             bits = occupancy_bitfield(self.occupancy, self.density_thresh)
             self._occ_cache = occupancy_skip_field(bits) if self.skip_march else bits
@@ -280,10 +296,17 @@ class Trainer:
 
     def _train_step(self, train_dataset):
         """One optimizer step -> (its batch, its metrics, the loss still on
-        the device): through the occupancy march when the trainer has the
-        grid, else through uniform samples."""
+        the device)."""
         self._maybe_update_occupancy()
         batch = train_dataset.train_batch(self.generator)
+        metrics = self._step(batch)
+        self.global_step += 1
+        return batch, metrics
+
+    def _step(self, batch):
+        """One optimizer step on ``batch`` -> its metrics: through the
+        occupancy march when the trainer has the grid, else through uniform
+        samples."""
         n, tv = batch["rays_o"].shape[0], self.tv_weight > 0.0
         common = dict(min_near=self.min_near, color_space=self.color_space, alpha_weight=self.alpha_loss,
                       tv_weight=self.tv_weight)
@@ -292,7 +315,7 @@ class Trainer:
             slab = self.active_slab
             draws = step_draws(self.generator, cfg, n, slab, self.device, tv=tv)
             metrics = train_step_occupancy(
-                self.state, batch, self._occ_bits_for_batch(), draws, cfg=cfg,
+                self.state, batch, self._occ_bits_for_batch(batch), draws, cfg=cfg,
                 dt_gamma=self.dt_gamma, max_steps=self.max_steps, slab=slab,
                 skip_field=self.skip_march, **common,
             )
@@ -302,8 +325,7 @@ class Trainer:
                                        self.device, tv=tv)
             metrics = train_step(self.state, batch, draws, cfg=self.cfg, num_steps=self.num_steps,
                                  upsample_steps=self.upsample_steps, **common)
-        self.global_step += 1
-        return batch, metrics
+        return metrics
 
     def train_step_once(self, train_dataset):
         """One optimizer step -> its metrics (the loss still on the device)."""

@@ -186,6 +186,37 @@ def test_table_grad_kernel_matches_index_add_on_card():
     assert torch.equal(got.cpu() == 0, want == 0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 5])
+def test_position_gradient_on_card_matches_cpu(dim):
+    """The encode's position gradient (D-NeRF's deform and hyper fields) on
+    the card against the CPU, with the table gradient through its kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the table-gradient kernel has no CPU mode")
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    spec = thg.HashGridSpec.create(num_levels=16, level_dim=2, log2_hashmap_size=19, desired_resolution=4096,
+                                   input_dim=dim)
+    g = torch.Generator().manual_seed(dim)
+    table = torch.rand(spec.table_rows, 2, generator=g) * 2 - 1
+    x = torch.rand(20000, dim, generator=g) * 1.2 - 0.1
+    cot = torch.randn(20000, spec.output_dim, generator=g)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        t = table.to(where).requires_grad_()
+        xx = x.to(where).requires_grad_()
+        before = thg.hashgrid_table_grad.launches
+        (thg.hashgrid_encode(t, xx, spec) * cot.to(where)).sum().backward()
+        grads[where] = (t.grad.cpu(), xx.grad.cpu(), thg.hashgrid_table_grad.launches - before)
+    (tg, xg, launched), (tc, xc, _) = grads["cuda"], grads["cpu"]
+    assert launched == 1
+    oob = ((x < 0) | (x > 1)).any(-1)
+    assert torch.all(xg[oob] == 0)
+    # fp32 in another order: the finest level's scale (4095) times an ulp
+    assert float((xg - xc).abs().max()) <= 1e-5 * float(xc.abs().max())
+    assert float((tg - tc).abs().max()) <= 1e-5 * float(tc.abs().max())
+
+
 @pytest.mark.parametrize("channels", [1, 3, 4])
 def test_png_codec_roundtrips_and_reads_imageio_files(tmp_path, channels):
     imageio = pytest.importorskip("imageio.v2")
