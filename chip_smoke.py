@@ -37,16 +37,16 @@ non-zero exit code and no result line:
      composite kernel must have run once per 4096-ray chunk of every view;
   5. training: an analytic RGBA sphere scene at 800x800 with train, val and
      test splits and its object-mask sidecar (the sphere's alpha),
-     ``main_nerf <scene> -O --iters 500`` at full width with its default
+     ``main_nerf <scene> -O --iters 400`` at full width with its default
      eval renderer (``iter``); each backward kernel must run once per step,
      the composite forward at least once per step and
      ``composite_rays_resume`` once per round of the eval, the loss must
      fall by half, the val PSNR must reach 20 dB and a checkpoint must
      exist; then ``--test -O`` serves from the trained checkpoint (a
      trained, sparse grid); the val views are evaluated with ``iter`` (all
-     4), ``iter_dev`` (2) and ``oneshot`` (1) (s/view, rounds, launches,
+     4), ``iter_dev`` (1) and ``oneshot`` (1) (s/view, rounds, launches,
      PSNR: the two iterative renders must agree within 1e-4 mean per view
-     and neither may fall 0.5 dB below ``oneshot`` on its view); 5 more steps
+     and neither may fall 0.5 dB below ``oneshot`` on its view); 3 more steps
      are profiled: stage times, the device's busy share and top kernels;
      nvidia-smi samples the SM clock beside each timed training window and
      the table-gradient timing; on one train step at each of the slabs 128,
@@ -84,7 +84,7 @@ non-zero exit code and no result line:
      the uniform path at 512 steps) must agree as the render checks do;
      composing [A, A] must equal [A] bit for bit, and [A] composed must
      equal ``render_image`` of A within 1e-5; then one composed 800x800
-     view is profiled by stage, and the same camera at 400x400 under
+     view is profiled by stage, and the same camera at 200x200 under
      torch.profiler;
   9. baked reference: the shear-warp renderer on the card against the CPU
      on an analytic two-blob volume at 64^3, 96x96 views from six poses
@@ -114,7 +114,7 @@ non-zero exit code and no result line:
      loss must halve and the val PSNR reach 20 dB; the baked npz and the
      mesh must exist), 20 steps at 256^3 with remat on and off (ms/step,
      peak memory), then ``--voxel_dynamic`` and ``--voxel_kplanes 8`` at
-     128^3 on the dynamic hard scene (400x400, GT at 128^3, 200 steps; a
+     128^3 on the dynamic hard scene (400x400, GT at 128^3, 100 steps; a
      finite val PSNR): ms/step, supervised rays/s, peak memory, kernel
      launches (none: the voxel path runs neither kernel);
  15. voxel profile: one dense 256^3 train step by stage (relayout, hat
@@ -126,8 +126,8 @@ non-zero exit code and no result line:
      version, timed beside ``index_add_``;
  17. D-NeRF (``[dnerf]``): a moving RGBA sphere at 400x400 (50 train
      frames, each with its time; 4 val, 4 test), ``main_dnerf -O
-     --dnerf_variant deform --iters 500 --time_slots 8`` at full width: warm
-     median ms/step, peak memory, the loss curve's ends, val PSNR (gate 18
+     --dnerf_variant deform --iters 700 --time_slots 8 --lr_net 1e-3`` at
+     full width: warm median ms/step, peak memory, the loss curve's ends, val PSNR (gate 18
      dB), each backward kernel once a step and the forward at least once,
      the time grid refreshed (more than one slot non-zero), the meshes at
      t = 0 and t = 1 and the checkpoint; then ``--test -O`` renders the
@@ -137,13 +137,47 @@ non-zero exit code and no result line:
      trained params; on the slot's skip walk and on uniform samples), basis
      and hyper on the card against the CPU in fp32 (loss and every
      gradient, the deformation and hyper nets' through the encode's position
-     gradient), and a 64x64 view at t = 0.5 through the slot's bitfield;
+     gradient) over the rays on which both took the same piece of every
+     piecewise function (encode cell, ReLU, early exit, march count; at
+     most 10% of the rays left out), and a 64x64 view at t = 0.5 through
+     the slot's bitfield;
  19. D-NeRF variants (``[dnerf-variants]``): basis and hyper under ``-O``
-     and deform without it (512 uniform samples) for 20-30 full-width steps:
+     and deform without it (512 uniform samples) for 20 full-width steps:
      ms/step, peak memory, a finite falling loss, one backward launch each a
      step.
 
-Every phase prints its seconds (``[phase] <name>: s``).
+ 20. viewer (``[viewer]``): ``python -m focnerf_tpu_torch.apps.viewer_app
+     <phase 5 scene> --workspace <phase 5 workspace> --test -O`` in a process
+     of its own on a free port (``VIEWER_PORT``): /status within 60 s, the
+     page, /render until spp goes 1 -> 2 on one camera, /control bg 0
+     resetting it, every PNG decoded by data/png.py (the card's machine has
+     no PIL) at the size the downscale gives, then terminated; in process,
+     one 400x400 frame through ``_view_only`` of each workspace kind (phase
+     5's checkpoint, 40 composite launches a frame; the same ``--baked
+     --bake_res 128``, then from its cache; phase 14's dense volume and
+     K-planes field at t = 0 and 0.5, which must differ; phase 17's D-NeRF
+     checkpoint at t = 0 and 1 from a test camera, each nearer its own
+     time's analytic spheres) with its s/frame and PSNR against the
+     analytic spheres (floor 15 dB for the static kinds);
+     train-while-viewing on phase 5's scene in a fresh workspace: two
+     16-step bursts behind a server with renders between them, finite
+     losses, each backward kernel once a step, save_ckpt through /action, no
+     step after the pause, the threads joined;
+ 21. LPIPS (``[lpips]``): with a random-weight npz in FOCNERF_LPIPS_NPZ, a
+     Trainer on phase 5's checkpoint evaluates the val views and reports
+     ``LPIPS (alex, torch)``; ``lpips_distance`` on the card equals the
+     CPU's within 1e-4 relative on one 800x800 view pair;
+ 22. no-preload (``[no-preload]``): the native loader built from
+     native/dataloader.cpp into focnerf_tpu_torch/build/ (its path
+     printed), ``main_nerf <phase 5 scene> --no-preload --cuda_ray --iters
+     100`` at full width: ms/step, peak memory, launches (each backward once
+     a step), the loss of the last 10 steps under the first 10's; the first
+     3 host batches' pixels within 1/255 of the preloaded images at the
+     pixels their rays leave through; then the trained model steps on host
+     and on preloaded batches in turns for ms/step.
+
+Every phase prints ``[phase-start] <name>`` before it starts (so a failure
+names its phase) and its seconds after (``[phase] <name>: s``).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with its launches on the training path (``launches``), in the
@@ -152,7 +186,9 @@ every kernel with its launches on the training path (``launches``), in the
 (``launches_baked_compose``, ``launches_baked_edit``), over phase 14's
 voxel runs (``launches_voxel``), in the uniform training run
 (``launches_uniform``), in the second object's ``-O2`` run
-(``launches_o2``) and in phase 17's D-NeRF training run (``launches_dnerf``).
+(``launches_o2``), in phase 17's D-NeRF training run (``launches_dnerf``), in
+phase 20's train-while-viewing run (``launches_viewer``) and in phase 22's
+``--no-preload`` run (``launches_no_preload``).
 """
 
 from __future__ import annotations
@@ -167,7 +203,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 VIEWS, RES, CHUNK = 4, 800, 4096
-TRAIN_ITERS, TRAIN_VIEWS, VAL_VIEWS = 500, 50, 4
+# 400 steps, from 500, for the 900 s target on slower hosts: the loss is
+# flat from step 250 (0.0030-0.0043 an epoch, val 26.62-26.64 dB at 500)
+TRAIN_ITERS, TRAIN_VIEWS, VAL_VIEWS = 400, 50, 4
 CAMERA_RADIUS, SPHERE_RADIUS = 3.0, 0.8  # ngp units; the bound box is [-2, 2]^3
 # the composition's val cameras: every eye outside the bound box, as the
 # shear-warp renderer needs (each coordinate-max >= 3.5 sin 60 / sqrt 2 > 2)
@@ -176,14 +214,16 @@ OBJECT = "sphere"  # the training scene's one object
 # (centre, radius, colour where y < 0, colour where y >= 0) in ngp units
 SPHERE = ((0.0, 0.0, 0.0), SPHERE_RADIUS, (0.9, 0.2, 0.1), (0.1, 0.3, 0.9))
 BALL = ((0.0, 0.0, 1.35), 0.45, (0.95, 0.8, 0.1), (0.2, 0.8, 0.2))  # the composition's second object
-SECOND, SECOND_ITERS = "ball", 200
+# 150 steps, from 200, for the 900 s target on slower hosts (every c2f stage
+# still runs: 50 steps at 16 levels)
+SECOND, SECOND_ITERS = "ball", 150
 # the second object's -O2 stages: (end step, active levels), at epoch ends
 SECOND_C2F = ((50, 8), (100, 12))
 # the uniform-sampling run (no -O): steps, (samples, importance samples), TV weight
-UNIFORM_ITERS, UNIFORM_STEPS, UNIFORM_TV = 300, (128, 64), 1e-4
+UNIFORM_ITERS, UNIFORM_STEPS, UNIFORM_TV = 150, (128, 64), 1e-4  # steps cut from 300 for the time limit
 # views each eval renderer renders in phase 5 (the rest: VAL_VIEWS); cut
-# from 4 to keep the smoke near half its time limit on a slow host
-EVAL_VIEWS = {"iter_dev": 2, "oneshot": 1}
+# from 4 (iter_dev: then from 2) to keep the smoke within its time limit
+EVAL_VIEWS = {"iter_dev": 1, "oneshot": 1}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # the card's bf16 shear-warp against the CPU's fp32 render of the same volume
@@ -1099,7 +1139,7 @@ def train_dataset(scene: str, dev, split: str = "train"):
                        mask_details=mask_details_for(load_sidecar(scene, split), OBJECT))
 
 
-def phase_train_profile(trainer, ds, dev, steps: int = 5):
+def phase_train_profile(trainer, ds, dev, steps: int = 3):
     """Where a training step's time goes, on the trained model: each stage
     of ``steps`` steps timed with a synchronize around it, then the same
     steps under torch.profiler for the device's busy share and top kernels."""
@@ -1840,8 +1880,8 @@ def phase_compose_profile(loaded, march, pose):
     """Where one composed 800x800 view's time goes (K=2, occupancy path, the
     CLI's model, ``loaded`` on the card; the CLIs warmed this path up):
     CUDA events around each stage the compositor calls, then the same
-    camera at half the resolution under torch.profiler (device busy share,
-    top kernels)."""
+    camera at a quarter of the resolution under torch.profiler (device busy
+    share, top kernels)."""
     import collections
 
     import numpy as np
@@ -1889,13 +1929,14 @@ def phase_compose_profile(loaded, march, pose):
           "(ms, share of wall; hashgrid_encode is inside density_fn): "
           + ", ".join(f"{n} {ms:.1f} ({ms / wall:.1%}, {len(spans[n])} calls)" for n, ms in
                       sorted(stage.items(), key=lambda kv: -kv[1])))
-    # the profiled view is a quarter of the pixels (the same camera at half
-    # the resolution): the profiler's host-side processing of an 800x800
-    # view's ~195k device events took ~70 s of the smoke's time limit
-    half = RES // 2
+    # the profiled view is a sixteenth of the pixels (the same camera at a
+    # quarter of the resolution): the profiler's host-side processing of an
+    # 800x800 view's ~195k device events took ~70 s of the smoke's time
+    # limit, of a 400x400 view's ~50k some 18 s
+    small = RES // 4
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        compose.compose_image(params, cfg, pose, intr / 2, half, half, feats, **kw)
+        compose.compose_image(params, cfg, pose, intr / 4, small, small, feats, **kw)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
@@ -1903,7 +1944,7 @@ def phase_compose_profile(loaded, march, pose):
     by_name = collections.Counter()
     for name, ms in events:
         by_name[name] += ms
-    print(f"[compose-profile] a {half}x{half} composed view under torch.profiler: wall {wall:.1f} ms, device busy "
+    print(f"[compose-profile] a {small}x{small} composed view under torch.profiler: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms ({busy / wall:.1%}; idle {1 - busy / wall:.1%}), {len(events)} device events")
     for name, ms in by_name.most_common(6):
         print(f"[compose-profile]   {ms:8.2f} ms {ms / busy:6.1%}  {name[:110]}")
@@ -2204,7 +2245,7 @@ def phase_procedural(work: str, dev, smi: str):
         raise AssertionError(f"procedural val PNG {png.shape} off the rendered frame by {err}")
 
 
-VOXEL_ITERS, DYN_ITERS = 300, 200  # PARITY.md:25's budget; the dynamic families' smoke depth
+VOXEL_ITERS, DYN_ITERS = 300, 100  # PARITY.md:25's budget; the dynamic families' smoke depth (cut from 200)
 VOXEL_RES, VM_RES = 256, 128  # the dense field at the default --bake_res; VM (and dynamic) at bench.py's 128^3
 DENSE_C2F = 3  # the dense run's c2f stages (64, 128, 256)
 DYN_RES, DYN_GT_RES = 400, 128  # harddyn_400_128 (tools/parity.py, --res 400 --views 30)
@@ -2487,15 +2528,20 @@ def phase_voxel_profile(work: str, dev, smi: str):
         print(f"[voxel-profile]   {t:8.3f} ms/step {t / busy:6.1%}  {name[:110]}")
 
 
-DNERF_RES, DNERF_ITERS = 400, 500
-DNERF_VIEWS = (("train", 50), ("val", 4), ("test", 4))  # 500 steps = 10 epochs
-# the main run's time slots: 500 steps refresh one slot every 16, so 8 slots
-# are each refreshed 3-4 times (at the default 64, slots past t = 0.5 would
-# never be refreshed in 500 of the reference's 30000 steps)
+# the networks at 1e-3 and the grid at 1e-2, the D-NeRF reference's own split
+# (dnerf/network.py:255-264): at main_dnerf's default (everything at 1e-2)
+# the deformation net died (dx = 0 everywhere, no gradient left) in some
+# runs of one tree, which then read 17.25-18.29 dB; at 1e-3 the nets need
+# 700 steps (six runs 21.37-22.02 dB; one at 500 steps read 15.56; PERF.md §6)
+DNERF_FLAGS = ("--lr_net", "1e-3")
+DNERF_RES, DNERF_ITERS = 400, 700
+DNERF_VIEWS = (("train", 50), ("val", 4), ("test", 4))  # 700 steps = 14 epochs
+# the main run's time slots: 700 steps refresh one slot every 16, so 8 slots
+# are each refreshed 5-6 times (at the default 64, slots past t = 0.5 would
+# never be refreshed in 700 of the reference's 30000 steps)
 DNERF_SLOTS = 8
-DNERF_VARIANT_ITERS = {"basis": 30, "hyper": 30, "uniform": 20}
+DNERF_VARIANT_ITERS = {"basis": 20, "hyper": 20, "uniform": 20}
 DNERF_PSNR = 18.0  # the [dnerf] val gate
-DNERF_REF_LOSS, DNERF_REF_GRAD = 1e-4, 1e-2  # card fp32 step against the CPU's (phase 6's limits)
 
 
 def dnerf_sphere(t: float):
@@ -2560,7 +2606,7 @@ def phase_dnerf(work: str, dev, smi: str):
 
     scene, ws = os.path.join(work, "dnerf_scene"), os.path.join(work, "dnerf_ws")
     argv = [scene, "-O", "--dnerf_variant", "deform", "--workspace", ws, "--iters", str(DNERF_ITERS),
-            "--time_slots", str(DNERF_SLOTS), "--ckpt_interval", "1000"]
+            "--time_slots", str(DNERF_SLOTS), "--ckpt_interval", "1000", *DNERF_FLAGS]
     opt = parse_options(argv)
     t0 = time.time()
     write_dynamic_scene(scene, opt.scale)
@@ -2601,7 +2647,8 @@ def phase_dnerf(work: str, dev, smi: str):
     meshes = {t: glob.glob(os.path.join(ws, "meshes", f"dnerf_*_t{t}.obj")) for t in ("0.00", "1.00")}
     faces = {t: _faces(p[0]) if p else 0 for t, p in meshes.items()}
     ckpt = CheckpointManager(os.path.join(ws, "checkpoints")).latest_step()
-    print(f"[dnerf] main_dnerf -O --dnerf_variant deform --iters {DNERF_ITERS} --time_slots {DNERF_SLOTS}: {steps} "
+    print(f"[dnerf] main_dnerf -O --dnerf_variant deform --iters {DNERF_ITERS} --time_slots {DNERF_SLOTS} "
+          f"{' '.join(DNERF_FLAGS)}: {steps} "
           f"steps of {opt.num_rays} rays in {train_s:.2f} s ({wall:.2f} s with loading, the val eval and the "
           f"meshes): warm median {warm:.2f} ms/step (host clock between step ends, after the first epoch), mean "
           f"{train_s / steps * 1e3:.2f}; peak memory {peak:.3f} GiB; {clocks.summary()} ({smi})")
@@ -2696,41 +2743,207 @@ def phase_dnerf_variants(work: str, dev, smi: str):
         del trainer, ds
 
 
-def phase_dnerf_reference(trainer, dev):
-    """One train step of each D-NeRF variant on the card (kernels) and on
-    the CPU (plain versions), same params, batch, occupancy and draws, fp32:
-    deform (the trained params) on the time slot's skip walk and on 128
-    uniform samples, basis and hyper (seeded params) on the same skip walk;
-    the loss and every parameter's gradient, the deformation and hyper
-    nets' through the position gradient (limits DNERF_REF_LOSS and
-    DNERF_REF_GRAD, rel L2 per leaf). Then one 64x64 view at t = 0.5
-    through the slot's bitfield (ladder march), card against CPU."""
-    import dataclasses
+DNERF_REF_LOSS, DNERF_REF_GRAD = 1e-4, 1e-2  # card fp32 step against the CPU's (phase 6's limits)
+# the largest share of a reference batch's rays that may be left out of the
+# card-against-CPU step for a point on a cell face, a ReLU that went the other
+# way or an early exit at the threshold (dnerf_step_card_vs_cpu)
+DNERF_REF_EXCLUDED = 0.1
 
+
+def encode_cells_differ(a, b, spec):
+    """Bool [...] over encode inputs a, b [..., D] in [0, 1] (CPU): True where
+    the two put a point in another cell at some level, or one inside [0, 1]^D
+    and the other outside. At a cell face the encode's position gradient
+    jumps by (corner difference) x (level scale, 4095 at the finest level),
+    and at the cube's faces its value jumps to 0; so two fp32 runs whose
+    warped points differ in the last bit can differ there by the jump."""
+    import torch
+
+    from focnerf_tpu_torch.ops.hashgrid import _level_scale
+
+    def oob(x):
+        return ((x < 0.0) | (x > 1.0)).any(-1)
+
+    differ = oob(a) != oob(b)
+    for lvl in range(spec.num_levels):
+        scale = _level_scale(spec, lvl)  # the encode's own arithmetic: x * scale + 0.5, floored
+        differ |= (torch.floor(a * scale + 0.5) != torch.floor(b * scale + 0.5)).any(-1)
+    return differ
+
+
+def near_early_exit(sigmas, deltas, density_scale: float, T_thresh: float, band: float = 1e-3):
+    """Bool [N] over a composite's inputs sigmas, deltas [N, T] (CPU): True
+    where some sample's transmittance in, exp(-optical depth before it),
+    lies within ``band`` (in optical depth, fp64) of T_thresh, where the
+    composite keeps or drops the sample (``composite_weights``). The two
+    devices' optical depths there differ by ~1e-5; the band is 100 times
+    that."""
+    import math
+
+    import torch
+
+    if T_thresh <= 0.0:
+        return torch.zeros(sigmas.shape[0], dtype=torch.bool)
+    s = deltas.double() * density_scale * sigmas.double()
+    before = torch.cumsum(s, -1) - s
+    return ((before - math.log(1.0 / T_thresh)).abs() < band).any(-1)
+
+
+def dnerf_reference_batch(seed: int, t: float, n: int = 512):
+    """A batch of n rays from one random camera (radius CAMERA_RADIUS) aimed
+    near the centre, with random RGBA pixels, at time t (CPU tensors)."""
     import numpy as np
     import torch
 
     from focnerf_tpu_torch.core.camera import rand_poses
-    from focnerf_tpu_torch.models.dnerf import init_dnerf_params
-    from focnerf_tpu_torch.render.dnerf_renderer import render_image_dnerf, time_occupancy_bitfield
-    from focnerf_tpu_torch.train.dnerf_steps import dnerf_loss, dnerf_loss_occupancy, dnerf_step_draws
-    from focnerf_tpu_torch.train.state import clone_params, param_leaves
 
-    t = 0.4
-    cfg32 = dataclasses.replace(trainer.cfg, compute_dtype=torch.float32)
-    n, slab = 512, 64
-    rng = np.random.default_rng(9)
+    rng = np.random.default_rng(seed)
     pose = rand_poses(rng, 1, radius=CAMERA_RADIUS)[0]
     d = rng.normal(size=(n, 3)).astype(np.float32) * 0.15 + pose[:3, 2]
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    batch = {
+    return pose, {
         "rays_o": torch.from_numpy(np.broadcast_to(pose[:3, 3], d.shape).astype(np.float32).copy()),
         "rays_d": torch.from_numpy(d.astype(np.float32)),
         "pixels": torch.from_numpy(rng.uniform(0, 1, (n, 4)).astype(np.float32)),
         "time": torch.tensor(t),
     }
+
+
+def dnerf_step_card_vs_cpu(params0, cfg, batch, draws, kw, skip=None, unmasked=False) -> dict:
+    """One D-NeRF train step's loss and gradients, fp32, on the card (kernels)
+    and on the CPU (plain versions), from the same params, batch, draws and
+    skip field: ``dnerf_loss``'s render and loss (``kw["num_steps"]``: the
+    uniform step; else the skip walk of ``dnerf_loss_occupancy``) with one
+    backward a device. The fp32 sums of the two differ in their last bits,
+    and four piecewise functions turn that into a jump of the gradient:
+    the encode at a cell face (``encode_cells_differ``), a ReLU of any net
+    at 0, the march's sample count, and the composite's early exit where a
+    sample's transmittance meets T_thresh (``near_early_exit``). So between
+    the forwards and the backwards, the rays on which the two runs took
+    another piece anywhere are taken out of the loss on both devices, and
+    both differentiate the same smooth function; their count is returned
+    and held to DNERF_REF_EXCLUDED by the caller. Returns the loss and
+    gradient errors (rel L2 per leaf, the worst of a key's leaves), the
+    smallest of the CPU's largest |gradient| over the net's leaves, the
+    card's launches and, with ``unmasked``, the errors of the full loss as
+    well (a second backward)."""
+    import torch
+
+    from focnerf_tpu_torch.models import dnerf as dnerf_model
+    from focnerf_tpu_torch.render import dnerf_renderer
+    from focnerf_tpu_torch.render.dnerf_renderer import render_rays_dnerf, render_rays_dnerf_occupancy
+    from focnerf_tpu_torch.train.dnerf_steps import DEFORM_REG, _gt_and_bg, _loss
+    from focnerf_tpu_torch.train.state import clone_params
+
+    fwd, real_encode, real_mlp = {}, dnerf_model.hashgrid_encode, dnerf_model.mlp_apply
+    real_composite = dnerf_renderer.composite_rays_fused
+    reset_counts()
+    for where in ("cuda", "cpu"):
+        to = lambda x: x.to(where)  # noqa: E731
+        params = clone_params({k: [to(w) for w in v] if isinstance(v, list) else to(v) for k, v in params0.items()},
+                              requires_grad=True)
+        tb, td = {k: to(v) for k, v in batch.items()}, {k: to(v) for k, v in draws.items()}
+        gt, bg = _gt_and_bg(tb["pixels"], td["bg"])
+        inputs, relus, composites = [], [], []
+
+        def recording(table, x01, spec, u=None):
+            inputs.append(x01.detach().cpu())
+            return real_encode(table, x01, spec, u)
+
+        def recording_mlp(ws, x, compute_dtype=torch.bfloat16):
+            with torch.no_grad():  # each hidden layer's input to its ReLU: the first i + 1 layers, same ops
+                for i in range(len(ws) - 1):
+                    relus.append((real_mlp(ws[: i + 1], x, compute_dtype) > 0).cpu())
+            return real_mlp(ws, x, compute_dtype)
+
+        def recording_composite(sigmas, rgbs, deltas, ts, **ckw):
+            composites.append(near_early_exit(sigmas.detach().cpu(), deltas.detach().cpu(),
+                                              ckw.get("density_scale", 1.0), ckw.get("T_thresh", 0.0)))
+            return real_composite(sigmas, rgbs, deltas, ts, **ckw)
+
+        dnerf_model.hashgrid_encode, dnerf_model.mlp_apply = recording, recording_mlp
+        dnerf_renderer.composite_rays_fused = recording_composite
+        try:
+            if "num_steps" in kw:
+                out = render_rays_dnerf(params, cfg, tb["rays_o"], tb["rays_d"], tb["time"],
+                                        num_steps=kw["num_steps"], perturb=True, z_noise=td["z_noise"], bg_color=bg)
+            else:
+                out = render_rays_dnerf_occupancy(params, cfg, tb["rays_o"], tb["rays_d"], tb["time"], None,
+                                                  perturb=True, noise=td["noise"], bg_color=bg, occ_skip=to(skip),
+                                                  **kw)
+        finally:
+            dnerf_model.hashgrid_encode, dnerf_model.mlp_apply = real_encode, real_mlp
+            dnerf_renderer.composite_rays_fused = real_composite
+        fwd[where] = (params, out, gt, inputs[0], relus, composites[0])
+
+    (_, og, _, xg, rg, eg), (_, oc, _, xc, rc, ec) = fwd["cuda"], fwd["cpu"]
+    n = xc.shape[0]
+    cells = encode_cells_differ(xg, xc, cfg.field_spec).reshape(n, -1).any(-1)
+    # every net's rows are the samples' (as the encode's) but the basis
+    # variant's coefficient net, one row for all: a flip there leaves out every ray
+    relu = torch.zeros(n, dtype=torch.bool)
+    for a, b in zip(rg, rc):
+        relu |= (a != b).reshape(n, -1).any(-1) if a.shape[:-1] == xc.shape[:-1] else bool((a != b).any())
+    exits = eg | ec
+    counts = og["n_samples"].cpu() != oc["n_samples"] if "n_samples" in oc else torch.zeros(n, dtype=torch.bool)
+    bad = cells | relu | exits | counts
+    keep = ~bad
+    res = {"rays": n, "excluded": int(bad.sum()), "cells": int(cells.sum()), "relus": int(relu.sum()),
+           "exits": int(exits.sum()), "counts": int(counts.sum()),
+           "points_differ": int((xg != xc).any(-1).sum()), "points": int(xc[..., 0].numel())}
+    grads = {}
+    for where, (params, out, gt, *_) in fwd.items():
+        per_ray = ((out["image"] - gt) ** 2).mean(-1)
+        masked = per_ray[keep.to(where)].mean()
+        if "deform_mean" in out:
+            masked = masked + DEFORM_REG * out["deform_mean"]
+        leaves = [(k, w) for k, v in params.items() for w in (v if isinstance(v, list) else [v])]
+        losses = {"masked": masked, "full": _loss(out, gt)[0]} if unmasked else {"masked": masked}
+        for i, (name, loss) in enumerate(losses.items()):
+            g = torch.autograd.grad(loss, [w for _, w in leaves], retain_graph=i + 1 < len(losses))
+            grads[where, name] = (float(loss.detach()), [(k, gw.cpu()) for (k, _), gw in zip(leaves, g)])
+        if where == "cuda":
+            torch.cuda.synchronize()
+            res["launches"] = read_counts()
+    for name in ("masked", "full") if unmasked else ("masked",):
+        (lg, gg), (lc, gc) = grads["cuda", name], grads["cpu", name]
+        rel = {}
+        for (k, a), (_, b) in zip(gg, gc):
+            rel[k] = max(rel.get(k, 0.0), float((a - b).norm() / b.norm().clamp(min=1e-30)))
+        res[name] = {"loss": (lg, lc), "loss_rel": abs(lg - lc) / abs(lc), "grad_rel": rel}
+        if name == "masked":
+            net = next(k for k in rel if k in ("deform_net", "basis_net", "hyper_net"))
+            res["net"] = net
+            res["net_grad_min_max"] = min(float(b.abs().max()) for k, b in gc if k == net)
+    return res
+
+
+def phase_dnerf_reference(trainer, dev):
+    """One train step of each D-NeRF variant on the card (kernels) and on
+    the CPU (plain versions), same params, batch, occupancy and draws, fp32
+    (``dnerf_step_card_vs_cpu``): deform (the trained params) on the time
+    slot's skip walk and on 128 uniform samples, basis and hyper (seeded
+    params) on the same skip walk; the loss and every parameter's gradient,
+    the deformation and hyper nets' through the position gradient (limits
+    DNERF_REF_LOSS and DNERF_REF_GRAD, rel L2 per leaf), over the rays whose
+    points lie in the same encode cells on both (at most DNERF_REF_EXCLUDED
+    of them left out). Then one 64x64 view at t = 0.5 through the slot's
+    bitfield (ladder march), card against CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.models.dnerf import init_dnerf_params
+    from focnerf_tpu_torch.render.dnerf_renderer import render_image_dnerf, time_occupancy_bitfield
+    from focnerf_tpu_torch.train.dnerf_steps import dnerf_step_draws
+
+    t = 0.4
+    cfg32 = dataclasses.replace(trainer.cfg, compute_dtype=torch.float32)
+    n = 512
+    pose, batch = dnerf_reference_batch(9, t, n)
     skip = trainer._occ_bits_for_batch({"time": torch.tensor(t, device=dev)}).cpu()
-    occ_kw = dict(dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps, slab=slab, skip_field=True)
+    occ_kw = dict(dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps, slab=64)
     trained = {k: [w.detach().cpu() for w in v] if isinstance(v, list) else v.detach().cpu()
                for k, v in trainer.state.params.items()}
     cases = {"deform -O step (trained)": (cfg32, trained, occ_kw),
@@ -2747,40 +2960,29 @@ def phase_dnerf_reference(trainer, dev):
         seeded = init_dnerf_params(torch.Generator().manual_seed(1), vcfg, "cpu")
         seeded["grid"][: vcfg.field_spec.offsets[8]] *= 1e3
         cases[f"{variant} -O step (seeded, levels 0-7 U(-0.1, 0.1))"] = (vcfg, seeded, occ_kw)
+    want = dict(composite_rays_fused=1, composite_rays_resume=0, composite_rays_fused_backward=1,
+                hashgrid_table_grad=1)
     for label, (cfg, params0, kw) in cases.items():
         draws = dnerf_step_draws(torch.Generator().manual_seed(3), n, "cpu", num_steps=kw.get("num_steps", 0))
-        out = {}
-        for where in ("cuda", "cpu"):
-            to = lambda x: x.to(where)  # noqa: E731
-            params = clone_params({k: [to(w) for w in v] if isinstance(v, list) else to(v) for k, v in params0.items()},
-                                  requires_grad=True)
-            tb, td = {k: to(v) for k, v in batch.items()}, {k: to(v) for k, v in draws.items()}
-            reset_counts()
-            if "num_steps" in kw:
-                loss, _ = dnerf_loss(params, cfg, tb, td, **kw)
-            else:
-                loss, _ = dnerf_loss_occupancy(params, cfg, tb, to(skip), td, **kw)
-            loss.backward()
-            if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
-                                                         composite_rays_fused_backward=1, hashgrid_table_grad=1):
-                raise AssertionError(f"dnerf reference {label} on the card launched {read_counts()}")
-            out[where] = (float(loss.detach()), {k: [w.grad.cpu() for w in (v if isinstance(v, list) else [v])]
-                                                 for k, v in params.items()})
-        (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
-        loss_rel = abs(lg - lc) / abs(lc)
-        rel = {k: max(float((a - b).norm() / b.norm().clamp(min=1e-30)) for a, b in zip(gg[k], gc[k])) for k in gc}
-        net = next(k for k in gc if k in ("deform_net", "basis_net", "hyper_net"))
-        print(f"[dnerf-reference] train step: {label}, {n} rays at t={t}, fp32, card vs CPU: loss {lg:.6g} vs {lc:.6g} "
-              f"(rel {loss_rel:.3g}, limit {DNERF_REF_LOSS}); gradient rel L2 error per key "
-              + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + f" (limit {DNERF_REF_GRAD}); |{net} grad| "
-              f"{max(float(a.abs().max()) for a in gc[net]):.3g}")
+        r = dnerf_step_card_vs_cpu(params0, cfg, batch, draws, kw, skip)
+        m = r["masked"]
+        print(f"[dnerf-reference] train step: {label}, {n} rays at t={t}, fp32, card vs CPU: {r['points_differ']} of "
+              f"{r['points']} encode inputs differ; {r['excluded']} rays left out (limit {DNERF_REF_EXCLUDED:.0%}): "
+              f"{r['cells']} with a point in another cell, {r['relus']} a ReLU the other way, {r['exits']} a sample at "
+              f"the early exit, {r['counts']} another march count; loss {m['loss'][0]:.6g} vs {m['loss'][1]:.6g} (rel {m['loss_rel']:.3g}, "
+              f"limit {DNERF_REF_LOSS}); gradient rel L2 error per key "
+              + ", ".join(f"{k} {v:.3g}" for k, v in m["grad_rel"].items())
+              + f" (limit {DNERF_REF_GRAD}); smallest {r['net']} leaf's largest |grad| {r['net_grad_min_max']:.3g}")
+        if r["launches"] != want:
+            raise AssertionError(f"dnerf reference {label} on the card launched {r['launches']}")
         # sums in other orders, atomics and CUDA vs libm exp/sin: the warped
         # points differ in their last bits, which the finest level (scale
         # 4095 at bound 2) moves its weights by ~2.4e-4
-        if not (loss_rel <= DNERF_REF_LOSS and max(rel.values()) <= DNERF_REF_GRAD):
+        if not (r["excluded"] <= DNERF_REF_EXCLUDED * r["rays"] and m["loss_rel"] <= DNERF_REF_LOSS
+                and max(m["grad_rel"].values()) <= DNERF_REF_GRAD):
             raise AssertionError(f"card and CPU D-NeRF train steps disagree: {label}")
-        if not all(float(a.abs().max()) > 0 for a in gc[net]):
-            raise AssertionError(f"dnerf reference {label}: {net} got no gradient")
+        if not r["net_grad_min_max"] > 0:
+            raise AssertionError(f"dnerf reference {label}: {r['net']} got no gradient")
 
     ema = trainer.state.ema_params
     size = 64
@@ -2853,6 +3055,529 @@ def phase_dnerf_kernel(dev):
         raise AssertionError(f"table-gradient kernel disagrees with index_add_ on the 5-D layout: {rel}")
 
 
+# ------------------------------------------------------------------ phases 20-22
+VIEW_RES = 400  # the in-process viewer frames
+VIEWER_STARTUP_S, VIEWER_RENDERS = 60, 16  # the entry point's /status wait; renders to see spp go 1 -> 2
+VIEWER_BURSTS = 2  # train-while-viewing: 16-step bursts
+NO_PRELOAD_ITERS = 100
+LPIPS_REL = 1e-4  # the npz LPIPS on the card against the CPU
+
+
+def free_port() -> int:
+    """A port no process listens on now: bind port 0 on 127.0.0.1, read, close."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, path: str, obj=None, timeout: float = 60.0) -> bytes:
+    """GET ``path`` (``obj`` None) or POST ``obj`` as JSON to the viewer on 127.0.0.1."""
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    with urllib.request.urlopen(urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data),
+                                timeout=timeout) as r:
+        return r.read()
+
+
+def check_frame(img, shape, what: str):
+    """A served frame: finite, ``shape``, not one flat colour."""
+    import numpy as np
+
+    img = np.asarray(img, np.float32)
+    if img.shape != tuple(shape) or not np.isfinite(img).all() or float(img.std()) < 1e-3:
+        raise AssertionError(f"{what}: frame of shape {img.shape} (want {tuple(shape)}), finite "
+                             f"{bool(np.isfinite(img).all())}, std {float(img.std()):.4g}")
+
+
+def sphere_gt(pose, spheres, res: int):
+    """The analytic spheres seen from ``pose`` (focal 1.2 * res) on white, [res, res, 3] float32 in [0, 1]."""
+    import numpy as np
+
+    rgba = sphere_view(pose, 1.2 * res, spheres, res=res).astype(np.float32) / 255.0
+    return rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:])
+
+
+def frame_psnr(img, gt) -> float:
+    import numpy as np
+
+    return float(-10.0 * np.log10(max(float(np.mean((np.clip(img, 0, 1) - gt) ** 2)), 1e-20)))
+
+
+def check_time_order(frames, gts):
+    """Each D-NeRF frame (t = 0, 1) is nearer its own time's analytic
+    spheres than the other time's: the slider reaches the field the right
+    way round."""
+    for i in (0, 1):
+        own, other = frame_psnr(frames[i], gts[i]), frame_psnr(frames[i], gts[1 - i])
+        if not own > other:
+            raise AssertionError(f"[viewer] the D-NeRF frame at t = {i}: {own:.2f} dB against its own time's "
+                                 f"spheres, {other:.2f} against the other's")
+
+
+def phase_viewer_entry_point(scene: str, ws: str):
+    """``python -m focnerf_tpu_torch.apps.viewer_app <scene> --workspace <ws>
+    --test -O`` in a process of its own on a free port: /status within
+    VIEWER_STARTUP_S, the page, /render until spp goes 1 -> 2 on the same
+    camera and size, /control bg 0 resets it (and again 1 -> 2); every PNG
+    decoded by data/png.py to the size /status names, not one flat colour;
+    then the process is terminated and must have exited."""
+    import numpy as np
+
+    from focnerf_tpu_torch.config import Options
+    from focnerf_tpu_torch.data.png import decode_png
+
+    port = free_port()
+    env = dict(os.environ, VIEWER_PORT=str(port))
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    argv = [sys.executable, "-m", "focnerf_tpu_torch.apps.viewer_app", scene, "--workspace", ws, "--test", "-O"]
+    t0 = time.time()
+    proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        status = None
+        while time.time() - t0 < VIEWER_STARTUP_S and proc.poll() is None:
+            try:
+                status = json.loads(_http(port, "/status", timeout=5))
+                break
+            except OSError:
+                time.sleep(0.25)
+        if status is None:
+            raise AssertionError(f"viewer_app: no /status within {VIEWER_STARTUP_S} s (exit code {proc.poll()})")
+        up_s = time.time() - t0
+        if b"<canvas" not in _http(port, "/"):
+            raise AssertionError("viewer_app: the page has no canvas")
+        cam = {"theta": 0.7, "phi": 0.3, "radius": COMPOSE_RADIUS}
+        W0, H0 = Options().W // 2, Options().H // 2  # the entry point's ViewerState
+        seen, prev_ds = [], 4  # a ViewerState starts at downscale 4
+
+        def render_until_spp_two(tag: str):
+            """POST /render with ``cam`` until spp reads 1 and then 2 (the
+            dynamic resolution may move the size first, which resets it);
+            the first render of ``tag`` must read spp 1."""
+            nonlocal prev_ds
+            for k in range(VIEWER_RENDERS):
+                t1 = time.perf_counter()
+                png = _http(port, "/render", cam)
+                ms = (time.perf_counter() - t1) * 1e3
+                st = json.loads(_http(port, "/status"))
+                img = decode_png(png)
+                want = (max(H0 // prev_ds, H0 // 4), max(W0 // prev_ds, W0 // 4), 3)
+                seen.append((tag, st["spp"], prev_ds, img.shape[:2], round(ms, 1)))
+                prev_ds = st["downscale"]
+                check_frame(img.astype(np.float32) / 255.0, want, f"viewer_app {tag} frame {k}")
+                if k == 0 and st["spp"] != 1:
+                    raise AssertionError(f"viewer_app {tag}: the first render read spp {st['spp']}, want 1")
+                if k > 0 and (seen[-2][1], st["spp"]) == (1, 2):
+                    return img
+            raise AssertionError(f"viewer_app {tag}: spp never went 1 -> 2 in {VIEWER_RENDERS} renders: {seen}")
+
+        white = render_until_spp_two("bg 1")
+        out = json.loads(_http(port, "/control", {"bg": 0}))
+        if out.get("bg") != 0:
+            raise AssertionError(f"viewer_app /control answered {out}")
+        black = render_until_spp_two("bg 0")  # its first render: spp reset to 1
+        if white.shape == black.shape and not black.astype(int).sum() < white.astype(int).sum():
+            raise AssertionError("viewer_app: bg 0 did not darken the frame")
+    finally:
+        proc.terminate()
+        try:
+            log, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate(timeout=30)
+    if proc.returncode is None:
+        raise AssertionError("viewer_app did not exit")
+    if f"localhost:{port}" not in log:
+        raise AssertionError(f"viewer_app did not print its port {port}: {log[-2000:]}")
+    print(f"[viewer] entry point: viewer_app --test -O on port {port}, /status after {up_s:.1f} s; renders "
+          f"(settings, spp after, downscale used, PNG size, ms) {seen}; exit code {proc.returncode} after terminate")
+
+
+def phase_viewer(work: str, dev, smi: str):
+    """Phase 20: the viewer. The entry point in a process of its own
+    (``phase_viewer_entry_point``) over phase 5's checkpoint; in process,
+    one VIEW_RES^2 frame through ``_view_only`` of each workspace kind the
+    earlier phases trained (phase 5's hash checkpoint; the same baked at
+    128^3, then from its cache; phase 14's dense voxel volume and K-planes
+    field at t = 0 and 0.5; phase 17's D-NeRF checkpoint at t = 0 and 1),
+    each with its s/frame and, where the scene is analytic, its PSNR
+    against the analytic spheres; the hash and D-NeRF frames must launch the
+    composite forward once per 4096-ray chunk; then train-while-viewing
+    (``_train_while_viewing`` behind a ViewerState and a server on
+    127.0.0.1) on phase 5's scene in a fresh workspace: VIEWER_BURSTS bursts
+    of 16 steps with renders between them, every loss finite, each backward
+    kernel once a step, save_ckpt through /action, no step after the pause.
+    Returns the train-while-viewing run's launches."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps import main_dnerf, viewer_app
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.core.camera import rand_poses
+    from focnerf_tpu_torch.data.dnerf_provider import DNeRFDataset
+    from focnerf_tpu_torch.data.png import decode_png
+    from focnerf_tpu_torch.data.provider import DatasetOptions, NeRFDataset
+    from focnerf_tpu_torch.train.checkpoints import CheckpointManager, load_model_config
+    from focnerf_tpu_torch.train.trainer import Trainer
+    from focnerf_tpu_torch.viewer.server import ViewerState, make_handler
+
+    scene, ws = os.path.join(work, "train_scene"), os.path.join(work, f"train_ws_{OBJECT}")
+    phase_viewer_entry_point(scene, ws)
+
+    res, chunks = VIEW_RES, math.ceil(VIEW_RES * VIEW_RES / CHUNK)
+    intr = (1.2 * res, 1.2 * res, res / 2, res / 2)
+    # every eye outside the bound box [-2, 2]^3, as shear-warp needs (COMPOSE_RADIUS)
+    pose = rand_poses(np.random.default_rng(21), 1, radius=COMPOSE_RADIUS)[0]
+
+    def frame(tag, render_fn, t=0.0, p=pose, k=intr, want_launches=None, gt=None, floor=15.0):
+        reset_counts()
+        t0 = time.perf_counter()
+        img = render_fn(p, k, res, res, t)
+        s = time.perf_counter() - t0
+        launches = read_counts()
+        check_frame(img, (res, res, 3), f"[viewer] {tag}")
+        psnr = "" if gt is None else f", PSNR {frame_psnr(img, gt):.2f} dB against the analytic spheres"
+        warm = "" if "again" in tag else " (its first call: warm-up included)"
+        print(f"[viewer] {tag}: {res}x{res} frame in {s:.3f} s{warm}{psnr}; launches {launches} ({smi})")
+        if want_launches is not None and launches["composite_rays_fused"] != want_launches:
+            raise AssertionError(f"[viewer] {tag}: composite launched {launches}, want {want_launches}")
+        if gt is not None and floor is not None and not frame_psnr(img, gt) >= floor:
+            raise AssertionError(f"[viewer] {tag}: PSNR {frame_psnr(img, gt):.2f} dB against the analytic spheres")
+        return img
+
+    gt = sphere_gt(pose, (SPHERE,), res)
+    view = lambda argv: viewer_app._view_only(parse_options(argv), dev)[0]  # noqa: E731
+    hash_fn = view([scene, "--workspace", ws, "--test", "-O"])
+    frame("hash checkpoint (phase 5, -O)", hash_fn, want_launches=chunks, gt=gt)
+    frame("hash checkpoint, again", hash_fn, want_launches=chunks, gt=gt)
+    baked = [scene, "--workspace", ws, "--test", "-O", "--baked", "--bake_res", "128"]
+    t0 = time.perf_counter()
+    fresh = view(baked)
+    print(f"[viewer] --baked --bake_res 128: bake, gate and cache in {time.perf_counter() - t0:.2f} s")
+    with open(os.path.join(ws, "bake_quality.json")) as f:
+        rep = json.load(f)
+    a = frame("--baked 128^3 (fresh bake)", fresh, gt=gt)
+    t0 = time.perf_counter()
+    cached = view(baked)
+    print(f"[viewer] --baked --bake_res 128 from the cache: loaded in {time.perf_counter() - t0:.2f} s; gate "
+          f"{rep['psnr_baked_vs_exact_mean']} dB mean baked against exact")
+    b = frame("--baked 128^3 (cache)", cached, gt=gt)
+    frame("--baked 128^3 (cache), again", cached, gt=gt)
+    if not float(np.abs(a - b).mean()) <= 2e-3:
+        raise AssertionError(f"[viewer] the cached volume's frame is {float(np.abs(a - b).mean())} off the fresh one")
+    frame(f"dense voxel {VOXEL_RES}^3 (phase 14)", view([scene, "--workspace", os.path.join(work, "voxel_dense"),
+                                                         "--test", "--baked", "--bake_res", str(VOXEL_RES)]), gt=gt)
+    dyn = NeRFDataset(DatasetOptions(path=os.path.join(work, f"harddyn_{DYN_RES}_{DYN_GT_RES}"), scale=1.0),
+                      split="val", device=dev)
+    kp_pose, kp_intr = dyn.poses[0], dyn.intrinsics * (res / dyn.W)
+    kp_fn = view([scene, "--workspace", os.path.join(work, "voxel_voxel_kplanes"), "--test", "--baked",
+                  "--bake_res", str(VM_RES)])
+    kp = []
+    for t in (0.0, 0.5):
+        reset_counts()
+        t0 = time.perf_counter()
+        kp.append(kp_fn(kp_pose, kp_intr, res, res, t))
+        print(f"[viewer] K-planes 8 at {VM_RES}^3 (phase 14) t = {t}: {res}x{res} frame in "
+              f"{time.perf_counter() - t0:.3f} s; launches {read_counts()}")
+        check_frame(kp[-1], (res, res, 3), f"[viewer] K-planes t = {t}")
+    if not float(np.abs(kp[0] - kp[1]).max()) > 0.02:
+        raise AssertionError(f"[viewer] K-planes frames at t = 0 and 0.5 differ by {np.abs(kp[0] - kp[1]).max()}")
+    # D-NeRF from its test split's first camera (t = 0), the same render as
+    # main_dnerf --test's of that view
+    dn_opt = parse_options([os.path.join(work, "dnerf_scene"), "--workspace", os.path.join(work, "dnerf_ws"),
+                            "--test", "-O", "--time_slots", str(DNERF_SLOTS)])
+    dds = DNeRFDataset(dn_opt.dataset_options(), split="test", device=dev)
+    dn_view = dds.eval_view(0)
+    dn_pose, dn_intr = dn_view["pose"], dds.intrinsics
+    dn_fn = viewer_app._view_only(dn_opt, dev)[0]
+    dn, gts = [], [sphere_gt(dn_pose, (dnerf_sphere(t),), res) for t in (0.0, 1.0)]
+    for t, g in zip((0.0, 1.0), gts):
+        dn.append(frame(f"D-NeRF deform (phase 17) t = {t}", dn_fn, t=t, p=dn_pose, k=dn_intr, want_launches=chunks,
+                        gt=g, floor=None))
+    trainer = main_dnerf.build_trainer(dn_opt, load_model_config(os.path.join(dn_opt.workspace, "checkpoints")), dev,
+                                       use_checkpoint="latest")
+    with torch.no_grad():
+        ref, _ = trainer._render_view(trainer.state.ema_params, dn_view, dds, trainer._render_kwargs())
+    err = float(np.abs(ref.float().cpu().numpy() - dn[0]).max())
+    print(f"[viewer] the D-NeRF frame at t = {float(dn_view['time'])} against main_dnerf --test's render of that "
+          f"view: max abs difference {err:.3g} (limit 1e-6)")
+    if float(dn_view["time"]) != 0.0 or not err <= 1e-6:
+        raise AssertionError(f"[viewer] the viewer's D-NeRF frame is {err} off main_dnerf --test's")
+    del trainer
+    check_time_order(dn, gts)
+
+    # train-while-viewing, at the full width of main_nerf -O, in a fresh workspace
+    wsv = os.path.join(work, "viewer_train_ws")
+    opt = parse_options([scene, "--workspace", wsv, "-O"])
+    t0 = time.perf_counter()
+    render_fn, train_fn, actions = viewer_app._train_while_viewing(opt, dev)
+    setup_s = time.perf_counter() - t0
+    steps, losses, want = [], [], 16 * VIEWER_BURSTS
+
+    def step():
+        t1 = time.perf_counter()
+        losses.append(train_fn())
+        steps.append(time.perf_counter() - t1)
+        if len(losses) == want:
+            state.paused = True  # takes effect when this burst ends
+        return losses[-1]
+
+    inside, real_step = [], Trainer._train_step
+
+    def timed(self, ds):  # the step alone, inside the lock (synchronized by its loss read)
+        t1 = time.perf_counter()
+        out = real_step(self, ds)
+        float(out[1]["loss"])
+        inside.append(time.perf_counter() - t1)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    Trainer._train_step = timed
+    state = ViewerState(render_fn, W=opt.W // 2, H=opt.H // 2, train_fn=step, max_spp=opt.max_spp, actions=actions)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port, renders, render_ms = srv.server_address[1], 0, []
+    try:
+        deadline = time.time() + 300
+        while len(losses) < want and time.time() < deadline:
+            if not state._thread.is_alive():
+                raise AssertionError("[viewer] the burst thread died")
+            t1 = time.perf_counter()
+            decode_png(_http(port, "/render", {"theta": 0.4, "phi": 0.2, "radius": CAMERA_RADIUS}))
+            render_ms.append((time.perf_counter() - t1) * 1e3)
+            if 0 < len(losses) < want:
+                renders += 1
+        if len(losses) != want:
+            raise AssertionError(f"[viewer] {len(losses)} train steps in 300 s, want {want}")
+        saved = json.loads(_http(port, "/action", {"name": "save_ckpt"}))["result"]
+        time.sleep(1.0)
+        after = len(losses)
+        launches = read_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(30)
+        joined = state.stop(timeout=60)
+        Trainer._train_step = real_step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ckpt = CheckpointManager(os.path.join(f"{wsv}_{OBJECT}", "checkpoints")).latest_step()
+    ms, alone = np.asarray(steps[1:]) * 1e3, np.asarray(inside[1:]) * 1e3
+    print(f"[viewer] train-while-viewing (main_nerf -O width, {opt.num_rays} rays a step): set-up {setup_s:.1f} s; "
+          f"{len(losses)} steps in {VIEWER_BURSTS} bursts, median {np.median(ms):.2f} ms/step with the wait for the "
+          f"lock, {np.median(alone):.2f} inside it (host clock, after the first step), {renders} renders between "
+          f"them, median "
+          f"{np.median(render_ms):.1f} ms a /render; loss first {losses[0]:.5f}, last {losses[-1]:.5f}; peak "
+          f"memory {peak:.3f} GiB; launches {launches}; save_ckpt: {saved!r}, checkpoint step {ckpt}; steps after "
+          f"the pause {after - want}; threads joined {joined and not th.is_alive()} ({smi})")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[viewer] non-finite loss while viewing: {losses}")
+    if launches["hashgrid_table_grad"] != want or launches["composite_rays_fused_backward"] != want:
+        raise AssertionError(f"[viewer] backward kernels launched {launches}, want once per step ({want})")
+    if renders < 2 or launches["composite_rays_fused"] <= want:
+        raise AssertionError(f"[viewer] {renders} renders between the steps, launches {launches}")
+    if ckpt != want or "checkpoint saved" not in saved:
+        raise AssertionError(f"[viewer] save_ckpt answered {saved!r}, latest checkpoint {ckpt}")
+    if after != want or not joined or th.is_alive():
+        raise AssertionError(f"[viewer] {after - want} steps after the pause; threads joined {joined}")
+    return launches
+
+
+def lpips_weights_npz(path: str, seed: int = 0):
+    """A random-weight LPIPS npz in the contract's shapes (train/lpips_npz.py)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shapes = [(64, 3, 11, 11), (192, 64, 5, 5), (384, 192, 3, 3), (256, 384, 3, 3), (256, 256, 3, 3)]
+    arrs = {}
+    for i, shape in enumerate(shapes):
+        arrs[f"conv{i}_w"] = rng.normal(0, 0.05, shape).astype(np.float32)
+        arrs[f"conv{i}_b"] = rng.normal(0, 0.05, shape[0]).astype(np.float32)
+        arrs[f"lin{i}"] = np.abs(rng.normal(0, 0.05, (1, shape[0], 1, 1))).astype(np.float32)
+    np.savez(path, **arrs)
+
+
+def phase_lpips(work: str, dev, smi: str):
+    """Phase 21: with a random-weight npz in ``FOCNERF_LPIPS_NPZ``, a Trainer
+    on phase 5's checkpoint evaluates the val views and must report ``LPIPS
+    (alex, torch)``; ``lpips_distance`` on the card must equal the CPU's
+    within LPIPS_REL relative on one view pair."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.train import lpips_npz
+    from focnerf_tpu_torch.train.trainer import Trainer
+
+    path = os.path.join(work, "lpips_alex.npz")
+    lpips_weights_npz(path)
+    scene = os.path.join(work, "train_scene")
+    opt = parse_options([scene, "-O"])
+    os.environ["FOCNERF_LPIPS_NPZ"] = path
+    try:
+        trainer = Trainer("ngp", opt.nerf_config(), workspace=os.path.join(work, f"train_ws_{OBJECT}"),
+                          use_checkpoint="latest", use_occupancy=True, eval_renderer="iter", device=dev)
+        val = train_dataset(scene, dev, "val")
+        t0 = time.perf_counter()
+        results = trainer.evaluate(val, save_images=False)
+        eval_s = time.perf_counter() - t0
+    finally:
+        del os.environ["FOCNERF_LPIPS_NPZ"]
+    name = "LPIPS (alex, torch)"
+    print(f"[lpips] Trainer.evaluate of phase 5's checkpoint on {val.n_views} val views in {eval_s:.2f} s: {results}")
+    if name not in results or not (np.isfinite(results[name]) and results[name] > 0):
+        raise AssertionError(f"[lpips] evaluate reported {results}, want a positive finite {name!r}")
+
+    view = val.eval_view(0)
+    gt = view["pixels"].float().reshape(val.H, val.W, -1)
+    gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+    img, _ = trainer._render_view(trainer.state.ema_params, view, val, trainer._render_kwargs())
+    pred = torch.clamp(img.float(), 0.0, 1.0)
+    w = lpips_npz.load_weights(path)
+    wd = {k: v.to(dev) for k, v in w.items()}
+    lpips_npz.lpips_distance(wd, pred, gt)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = float(lpips_npz.lpips_distance(wd, pred, gt))
+    card_ms = (time.perf_counter() - t0) * 1e3
+    cpu = float(lpips_npz.lpips_distance(w, pred.cpu(), gt.cpu()))
+    rel = abs(card - cpu) / abs(cpu)
+    print(f"[lpips] lpips_distance on a {val.H}x{val.W} view pair: card {card:.7f} ({card_ms:.2f} ms), CPU "
+          f"{cpu:.7f}, relative difference {rel:.2e} (limit {LPIPS_REL}) ({smi})")
+    if not rel <= LPIPS_REL:
+        raise AssertionError(f"[lpips] card {card} against CPU {cpu}: {rel:.3g} relative")
+
+
+def pixel_indices(batch, pose, intr):
+    """The pixel index of each ray of ``batch``, recovered from its direction
+    (the inverse of core.rays.get_rays for a pinhole camera)."""
+    import numpy as np
+
+    d = batch["rays_d"].double().cpu().numpy() @ np.asarray(pose, np.float64)[:3, :3]
+    fx, fy, cx, cy = (float(v) for v in intr)
+    return d[:, 0] / d[:, 2] * fx + cx - 0.5, d[:, 1] / d[:, 2] * fy + cy - 0.5
+
+
+def phase_no_preload(work: str, dev, smi: str):
+    """Phase 22: ``main_nerf <phase 5 scene> --no-preload --cuda_ray --iters
+    NO_PRELOAD_ITERS`` at full width (no -O: it forces preload): the native
+    library must build (its path printed) and the train split stay on the
+    host; on the run's first 3 batches the pixels must equal the preloaded
+    image at the pixels their rays leave through within 1/255; the loss of
+    the last 10 steps must be under the first 10's; each backward kernel once
+    a step. Then the trained model steps on host and preloaded batches in
+    turns (host, preloaded, preloaded, host; 16 steps each, one occupancy
+    update in each) for ms/step.
+    Returns the run's launches."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps import main_nerf
+    from focnerf_tpu_torch.apps.main_nerf import mask_details_for
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.data import native_loader
+    from focnerf_tpu_torch.data.provider import NeRFDataset
+    from focnerf_tpu_torch.data.yolo_sidecar import load_sidecar
+    from focnerf_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    built = native_loader.available()
+    print(f"[no-preload] native loader library: {native_loader.library_note()} ({time.perf_counter() - t0:.2f} s)")
+    if not built:
+        raise AssertionError("[no-preload] the native loader did not build")
+    scene, ws = os.path.join(work, "train_scene"), os.path.join(work, "nopreload_ws")
+    argv = [scene, "--no-preload", "--cuda_ray", "--workspace", ws, "--iters", str(NO_PRELOAD_ITERS),
+            "--disable_yolo", "--mesh_res", "0"]
+    captured, ends = [], []
+    real_batch, real_step = NeRFDataset._host_train_batch, Trainer._train_step
+
+    def host_batch(self):
+        batch = real_batch(self)
+        if len(captured) < 3:
+            captured.append({k: v.clone() for k, v in batch.items()})
+        return batch
+
+    def timed(self, ds):  # the host clock at the end of every train step
+        out = real_step(self, ds)
+        ends.append(time.perf_counter())
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    NeRFDataset._host_train_batch, Trainer._train_step = host_batch, timed
+    t0 = time.perf_counter()
+    try:
+        (trainer,) = main_nerf.main(argv, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        NeRFDataset._host_train_batch, Trainer._train_step = real_batch, real_step
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = np.asarray(trainer.step_losses)
+    dt = np.diff(np.asarray(ends)) * 1e3
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    print(f"[no-preload] main_nerf --no-preload --cuda_ray --iters {NO_PRELOAD_ITERS}: {len(losses)} steps of "
+          f"{trainer.cfg.grid_spec.table_rows} table rows x {trainer.cfg.level_dim}, median {np.median(dt[9:]):.2f} "
+          f"ms/step (host clock between step ends, after the first 10), mean {np.mean(dt):.2f}; {wall:.2f} s with "
+          f"loading and the val eval; peak memory {peak:.3f} GiB; loss first 10 {first:.5f}, last 10 {last:.5f}; "
+          f"val PSNR {trainer.last_eval_results['PSNR']:.3f} dB; launches {launches} ({smi})")
+    if len(captured) != 3 or len(losses) != NO_PRELOAD_ITERS:
+        raise AssertionError(f"[no-preload] {len(captured)} host batches seen, {len(losses)} steps")
+    if launches["hashgrid_table_grad"] != len(losses) or launches["composite_rays_fused_backward"] != len(losses):
+        raise AssertionError(f"[no-preload] backward kernels launched {launches}, want once per step")
+    if launches["composite_rays_fused"] < len(losses):
+        raise AssertionError(f"[no-preload] composite forward launched {launches} in {len(losses)} steps")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"[no-preload] loss {first} -> {last}")
+
+    details = mask_details_for(load_sidecar(scene, "train"), OBJECT)
+    pre = NeRFDataset(parse_options([scene]).dataset_options(), split="train", mask_details=details, device=dev)
+    worst = 0.0
+    for b in captured:
+        v = int(b["view"])
+        x, y = pixel_indices(b, pre.poses[v], pre.intrinsics)
+        if not (np.abs(x - np.round(x)).max() < 1e-2 and np.abs(y - np.round(y)).max() < 1e-2):
+            raise AssertionError("[no-preload] a ray does not leave through a pixel centre")
+        inds = torch.as_tensor(np.round(y).astype(np.int64) * pre.W + np.round(x).astype(np.int64), device=dev)
+        want_px = pre.images[v][inds].float()
+        worst = max(worst, float((b["pixels"].float() - want_px).abs().max()))
+        if not torch.equal(b["ray_mask"], pre.masks_dev[v][inds]):
+            raise AssertionError("[no-preload] a host batch's mask is not the image's")
+    print(f"[no-preload] 3 host batches against the preloaded images at the pixels their rays leave through: "
+          f"max abs difference {worst:.3g} (limit 1/255)")
+    if not worst <= 1 / 255 + 1e-6:
+        raise AssertionError(f"[no-preload] host pixels {worst} off the image")
+
+    host = NeRFDataset(parse_options([scene, "--no-preload"]).dataset_options(), split="train",
+                       mask_details=details, device=dev)
+    if host.images_host is None:
+        raise AssertionError("[no-preload] the host pipeline preloaded the train split")
+    ms = {"host": [], "preloaded": []}
+    try:
+        for name, ds in (("host", host), ("preloaded", pre), ("preloaded", pre), ("host", host)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(16):  # one occupancy update in every window
+                trainer.train_step_once(ds)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t1) * 1e3 / 16)
+    finally:
+        host.close()
+    print(f"[no-preload] the trained model, 16 synchronized steps a window in turns (host, preloaded, preloaded, "
+          f"host): host batches {[round(m, 2) for m in ms['host']]} ms/step, preloaded "
+          f"{[round(m, 2) for m in ms['preloaded']]} ms/step ({smi})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2865,6 +3590,7 @@ def main() -> int:
     t_start = time.time()
 
     def phase(name, fn, *args):
+        print(f"[phase-start] {name}", flush=True)  # a failure below names its phase
         t0 = time.time()
         out = fn(*args)
         print(f"[phase] {name}: {time.time() - t0:.1f} s")
@@ -2912,6 +3638,9 @@ def main() -> int:
     phase("dnerf reference", phase_dnerf_reference, dnerf_trainer, dev)
     del dnerf_trainer
     phase("dnerf variants", phase_dnerf_variants, work, dev, smi)
+    viewer_launches = phase("viewer", phase_viewer, work, dev, smi)
+    phase("lpips", phase_lpips, work, dev, smi)
+    no_preload_launches = phase("no-preload", phase_no_preload, work, dev, smi)
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
     line = [{**k, "launches": launches[k["name"]], "launches_compose": composed["combined"][k["name"]],
@@ -2919,7 +3648,9 @@ def main() -> int:
              "launches_baked_compose": baked_runs["combined"][k["name"]],
              "launches_baked_edit": baked_runs["editable"][k["name"]],
              "launches_voxel": voxel_launches[k["name"]], "launches_uniform": uniform_launches[k["name"]],
-             "launches_o2": o2_launches[k["name"]], "launches_dnerf": dnerf_launches[k["name"]]} for k in kernels]
+             "launches_o2": o2_launches[k["name"]], "launches_dnerf": dnerf_launches[k["name"]],
+             "launches_viewer": viewer_launches[k["name"]], "launches_no_preload": no_preload_launches[k["name"]]}
+            for k in kernels]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

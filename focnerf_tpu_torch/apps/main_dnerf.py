@@ -24,6 +24,7 @@ trainer are named, one line each, when they are set.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -98,7 +99,7 @@ def main(argv=None, device=None):
     warn_ignored(opt)
     os.makedirs(opt.workspace, exist_ok=True)
     cfg = opt.dnerf_config()
-    dopt = opt.dataset_options()
+    dopt = dataclasses.replace(opt.dataset_options(), host_pipeline=False)  # see IGNORED
 
     if opt.test:
         saved = load_model_config(os.path.join(opt.workspace, "checkpoints"))

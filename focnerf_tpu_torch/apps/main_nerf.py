@@ -17,11 +17,13 @@ Usage:
   python -m focnerf_tpu_torch.apps.main_nerf <scene> --upsample_steps 64 --error_map --workspace ws
   python -m focnerf_tpu_torch.apps.main_nerf <scene> --test -O --workspace ws
 
-Without ``-O`` the trainer samples uniformly (``--num_steps``, plus
-``--upsample_steps`` importance samples); ``-O2`` adds the coarse-to-fine
-stages (``--c2f``) and the alternating level-subset backward
-(``--grad_level_phases``) to ``-O``; ``--error_map``, ``--patch_size`` and
-``--tv_weight`` work on either path.
+``--no-preload`` keeps the train split on the host and draws each batch
+with the native threaded loader (data/native_loader.py), as JAX's host
+pipeline does; ``-O`` preloads. Without ``-O`` the trainer samples
+uniformly (``--num_steps``, plus ``--upsample_steps`` importance samples);
+``-O2`` adds the coarse-to-fine stages (``--c2f``) and the alternating
+level-subset backward (``--grad_level_phases``) to ``-O``; ``--error_map``,
+``--patch_size`` and ``--tv_weight`` work on either path.
 
 Training evaluates the val split with ``--eval_renderer`` (default ``iter``,
 the iterative worklist renderer; ``iter_dev`` its drain; ``oneshot`` the
@@ -103,6 +105,7 @@ def train_one_object(opt: Options, obj: str, sidecar_train, sidecar_val, device)
     trainer.train(train_ds, val_ds, max_epochs=int(np.ceil(remaining / steps_per_epoch)),
                   steps_per_epoch=steps_per_epoch)
     train_time = time.time() - t0
+    train_ds.close()  # the native loader's threads, under --no-preload
     with open(os.path.join(opt.workspace, "train_times.txt"), "a") as f:
         f.write(f"{obj}: {train_time:.2f}s for {opt.iters} iters\n")
     if val_ds is not None and trainer.last_eval_step != trainer.global_step:
@@ -157,9 +160,6 @@ def warn_ignored(opt: Options) -> None:
     if opt.grid_int8:
         print("[main_nerf] --grid_int8 is ignored: it quantizes the JAX package's TPU one-hot "
               "table backward; the port's scatter is exact, as JAX's is off the TPU")
-    if not opt.preload:
-        print("[main_nerf] --no-preload is ignored: the port preloads every split to the device; "
-              "JAX's host pipeline samples pixels uniformly, as the preloaded batches do")
 
 
 def main(argv=None, device=None):

@@ -7,9 +7,10 @@ returning the port's types. ``-O2`` keeps JAX's override semantics: an
 explicit ``--grad_level_phases 0`` becomes 2 and an empty ``--c2f`` the
 default schedule (with at least 12 levels). Options of features the port
 has not ported yet (rand-pose) are parsed and carried; the port's trainer
-refuses rand-pose, and ``main_nerf`` says so for the two options it ignores
-(``--grid_int8``, ``--no-preload``). ``dnerf_config`` gives ``main_dnerf``'s
-field.
+refuses rand-pose, and ``main_nerf`` says so for the option it ignores
+(``--grid_int8``). ``--no-preload`` selects the host pipeline of the train
+split (``dataset_options().host_pipeline``), as in JAX; ``-O`` forces
+``preload``. ``dnerf_config`` gives ``main_dnerf``'s field.
 """
 
 from __future__ import annotations
@@ -188,6 +189,9 @@ class Options:
             edit_x=self.edit_x,
             error_map=self.error_map,
             patch_size=self.patch_size,
+            # --no-preload: the train split stays on the host as uint8 and
+            # the native threaded loader draws the batches
+            host_pipeline=not self.preload,
         )
 
 

@@ -2,7 +2,9 @@
 
 The machine with the card has no imageio, PIL or cv2, so the port carries
 its own codec: 8-bit grayscale, gray+alpha, RGB and RGBA, filter types 0-4,
-no interlace. ``read_image``/``write_image`` use imageio when it is
+no interlace. ``encode_png``/``decode_png`` work on bytes in memory (the
+viewer's frames: the only codec it uses, on any machine), ``write_png``/
+``read_png`` on files. ``read_image``/``write_image`` use imageio when it is
 importable and this codec otherwise.
 """
 
@@ -23,23 +25,28 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
 
 
-def write_png(path: str, arr: np.ndarray) -> None:
-    """Write uint8 [H, W] or [H, W, 1|2|3|4] as a PNG (filter type 0 on every row)."""
+def encode_png(arr: np.ndarray) -> bytes:
+    """uint8 [H, W] or [H, W, 1|2|3|4] -> PNG bytes (filter type 0 on every
+    row, zlib level 6: the same input gives the same bytes)."""
     arr = np.asarray(arr)
     if arr.dtype != np.uint8:
-        raise ValueError(f"write_png needs uint8, got {arr.dtype}")
+        raise ValueError(f"encode_png needs uint8, got {arr.dtype}")
     if arr.ndim == 2:
         arr = arr[..., None]
     H, W, C = arr.shape
     if C not in _COLOR_TYPE:
-        raise ValueError(f"write_png needs 1-4 channels, got {C}")
+        raise ValueError(f"encode_png needs 1-4 channels, got {C}")
     raw = np.concatenate([np.zeros((H, 1), np.uint8), arr.reshape(H, W * C)], axis=1)
     header = struct.pack(">IIBBBBB", W, H, 8, _COLOR_TYPE[C], 0, 0, 0)
+    return b"".join((_SIGNATURE, _chunk(b"IHDR", header), _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)),
+                     _chunk(b"IEND", b"")))
+
+
+def write_png(path: str, arr: np.ndarray) -> None:
+    """Write uint8 [H, W] or [H, W, 1|2|3|4] as a PNG (``encode_png``)."""
+    blob = encode_png(arr)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", header))
-        f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(blob)
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -80,12 +87,10 @@ def _unfilter(data: np.ndarray, H: int, W: int, C: int) -> np.ndarray:
     return out.astype(np.uint8).reshape(H, W, C)
 
 
-def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit, non-interlaced PNG -> uint8 [H, W, C] (C = 1..4)."""
-    with open(path, "rb") as f:
-        blob = f.read()
+def decode_png(blob: bytes, name: str = "PNG data") -> np.ndarray:
+    """8-bit, non-interlaced PNG bytes -> uint8 [H, W, C] (C = 1..4)."""
     if not blob.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos, idat, header = len(_SIGNATURE), [], None
     while pos < len(blob):
         (length,) = struct.unpack(">I", blob[pos : pos + 4])
@@ -99,15 +104,21 @@ def read_png(path: str) -> np.ndarray:
         elif tag == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     W, H, depth, color_type, _, _, interlace = header
     if depth != 8 or color_type not in _CHANNELS or interlace != 0:
         raise ValueError(
-            f"{path}: only 8-bit non-interlaced gray/RGB(A) PNGs are supported "
+            f"{name}: only 8-bit non-interlaced gray/RGB(A) PNGs are supported "
             f"(depth {depth}, colour type {color_type}, interlace {interlace})"
         )
     data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     return _unfilter(data, H, W, _CHANNELS[color_type])
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit, non-interlaced PNG file -> uint8 [H, W, C] (C = 1..4)."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
 
 
 def read_image(path: str) -> np.ndarray:

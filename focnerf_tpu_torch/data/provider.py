@@ -10,8 +10,13 @@ pixels drawn uniformly, as ``patch_size`` patches, or by the view's error
 map, their rays and GT) is gathered there from a ``torch.Generator``, as
 ``make_batch_assemble`` does. With ``error_map`` the train split keeps the
 per-view map ``error_map`` [n_views, 128 * 128], filled with 0.1, which the
-trainer updates after every step. The host pipeline (``--no-preload``) and
-the rand-pose batches are not ported.
+trainer updates after every step. With ``host_pipeline`` (``--no-preload``,
+JAX's :267-288, :376-410) the train split stays on the host as a uint8
+[V, H*W, C] stack (``images_host``), the native threaded loader
+(data/native_loader.py) draws each batch's view, indices and pixels there,
+and the rays, mask and object feature are built on the device from them;
+it samples uniformly (no error map, no patches). The rand-pose batches are
+not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ class DatasetOptions:
     edit_x: float = 0.0  # camera x-shift for editing previews
     error_map: bool = False  # error-map importance sampling (train split)
     patch_size: int = 1  # > 1: sample patch_size x patch_size patches
+    # keep the train split on the host as uint8 and draw batches with the
+    # native threaded loader instead of preloading it to the device
+    host_pipeline: bool = False
 
 
 def _load_image(path: str) -> np.ndarray:
@@ -169,11 +177,26 @@ class NeRFDataset:
         if mask_details is not None and images:
             images = self._apply_masks(images, mask_details, root)
 
+        self.training = split in ("train", "all", "trainval")
         self.images = None
+        self.images_host: Optional[np.ndarray] = None
+        self._native_loader = None
         if images:
-            dtype = torch.float16 if opt.preload_dtype == "float16" else torch.float32
+            from focnerf_tpu_torch.data import native_loader
+
             arr = np.stack(images).reshape(self.n_views, -1, images[0].shape[-1])
-            self.images = torch.as_tensor(arr).to(self.device, dtype)
+            host = opt.host_pipeline and self.training
+            if host and not native_loader.available():
+                print("[WARN] native loader unavailable; preloading to device")
+                host = False
+            if host:
+                if opt.error_map or opt.patch_size > 1:
+                    raise ValueError("host_pipeline samples uniformly (no error-map/patch modes)")
+                self.images_host = np.ascontiguousarray(
+                    np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8))
+            else:
+                dtype = torch.float16 if opt.preload_dtype == "float16" else torch.float32
+                self.images = torch.as_tensor(arr).to(self.device, dtype)
         self.poses_dev = torch.as_tensor(self.poses).to(self.device)
         self.masks_dev = None
         if self.masks is not None:
@@ -237,6 +260,10 @@ class NeRFDataset:
         obj_feat [F] when it has features, view, and inds_coarse [N] with an
         error map). ``draws``: {"view": [1], then ``index_draws``'s} instead
         of drawing them. Everything stays on the device: no host sync."""
+        if self.images_host is not None:
+            if draws is not None:
+                raise ValueError("host_pipeline samples its own views and indices (draws=None)")
+            return self._host_train_batch()
         if self.images is None:
             raise ValueError(f"split {self.split!r} has no images to train on")
         if draws is None:
@@ -265,11 +292,44 @@ class NeRFDataset:
             batch["inds_coarse"] = inds_coarse
         return batch
 
+    def _host_train_batch(self) -> dict:
+        """One batch from the native loader (started at the first call, two
+        worker threads, seed 1234, as JAX's): the view, indices and pixels
+        come from the host; rays, mask and object feature are built on the
+        device, in ``train_batch``'s keys."""
+        from focnerf_tpu_torch.data.native_loader import NativeBatchLoader
+
+        if self._native_loader is None:
+            self._native_loader = NativeBatchLoader(self.images_host, self.opt.num_rays, n_threads=2, seed=1234)
+        v, inds, pixels = self._native_loader.next()
+        inds = torch.from_numpy(inds.astype(np.int64)).to(self.device)
+        view = torch.tensor(v, device=self.device)
+        rays = get_rays(self.poses_dev[v], self.intrinsics, self.H, self.W, inds=inds, device=self.device)
+        batch = {
+            "rays_o": rays["rays_o"],
+            "rays_d": rays["rays_d"],
+            "pixels": torch.from_numpy(pixels).to(self.device),
+            "view": view,
+        }
+        if self.masks_dev is not None:
+            batch["ray_mask"] = self.masks_dev[v][inds]
+        if self.obj_feats_dev is not None:
+            batch["obj_feat"] = self.obj_feats_dev[v]
+        return batch
+
+    def close(self) -> None:
+        """Stop the native loader's threads, if they were started."""
+        if self._native_loader is not None:
+            self._native_loader.close()
+            self._native_loader = None
+
     def eval_view(self, view: int) -> dict:
         """Pose, size, GT pixels and object feature of one view."""
         out = {"pose": self.poses[view], "H": self.H, "W": self.W}
         if self.images is not None:
             out["pixels"] = self.images[view].float()
+        elif self.images_host is not None:
+            out["pixels"] = torch.from_numpy(self.images_host[view].astype(np.float32) / 255.0).to(self.device)
         if self.obj_feats is not None:
             out["obj_feat"] = torch.as_tensor(self.obj_feats[view], device=self.device)
         return out

@@ -9,16 +9,15 @@ any device: a render on the card is measured on the card, and only the
 scalar comes back to the host.
 
 ``LPIPSMeter`` looks where the JAX package does, in its order: the npz
-weights of focnerf_tpu/train/lpips_jax.py (that network is not ported, so a
-weights file raises ``NotImplementedError`` rather than being skipped), then
-the torch ``lpips`` package, else the weight-free substitute ``1 - ms_ssim``,
+weights read by train/lpips_npz.py (the twin of focnerf_tpu/train/
+lpips_jax.py; the meter is then ``LPIPS (alex, torch)``), then the torch
+``lpips`` package, else the weight-free substitute ``1 - ms_ssim``,
 labelled ``LPIPS* (ms-ssim-dist)``.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 import torch
@@ -152,28 +151,23 @@ def SSIMMeter() -> Meter:
     return Meter("SSIM", ssim)
 
 
-def default_weight_paths():
-    """Where focnerf_tpu/train/lpips_jax.py looks for its AlexNet weights."""
-    env = os.environ.get("FOCNERF_LPIPS_NPZ", "")
-    paths = [env] if env else []
-    paths.append(os.path.expanduser("~/.cache/focnerf/lpips_alex.npz"))
-    return paths
-
-
 class LPIPSMeter(Meter):
-    """LPIPS through the torch ``lpips`` package, else ``1 - ms_ssim`` under
-    the name ``LPIPS* (ms-ssim-dist)`` (lower is better, as LPIPS), so a log
-    never passes the substitute off as the real metric."""
+    """LPIPS-alex from the npz weights of train/lpips_npz.py when a file is
+    found, else through the torch ``lpips`` package, else ``1 - ms_ssim``
+    under the name ``LPIPS* (ms-ssim-dist)`` (lower is better, as LPIPS), so
+    a log never passes the substitute off as the real metric."""
 
     def __init__(self, net: str = "alex"):
+        self._net = None
+        npz = None
         if net == "alex":
-            found = [p for p in default_weight_paths() if p and os.path.exists(p)]
-            if found:
-                raise NotImplementedError(
-                    f"LPIPS weights found at {found[0]}, but the network that reads them "
-                    "(focnerf_tpu/train/lpips_jax.py) is not ported yet; move the file to "
-                    "measure with the lpips package or the ms-ssim substitute"
-                )
+            from focnerf_tpu_torch.train.lpips_npz import try_create
+
+            npz = try_create()
+        if npz is not None:
+            self.available = True
+            super().__init__(f"LPIPS ({net}, torch)", npz)
+            return
         try:  # pragma: no cover - depends on an optional package
             import lpips
 
@@ -181,7 +175,6 @@ class LPIPSMeter(Meter):
             self.available = True
             super().__init__(f"LPIPS ({net})", self._lpips)
         except Exception:
-            self._net = None
             self.available = False
             super().__init__("LPIPS* (ms-ssim-dist)", lambda p, g: 1.0 - ms_ssim(p, g))
 

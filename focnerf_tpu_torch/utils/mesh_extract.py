@@ -31,46 +31,51 @@ NATIVE_SOURCE = os.path.join(_ROOT, "native", "marching_tets.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
-_native = {}  # "lib": the loaded library or None; "note": its path or why it is None
+_native = {}  # stem -> (the loaded library or None, its path or why it is None)
 
 
-def _build_native():
-    """Compile ``native/marching_tets.cpp`` into BUILD_DIR (a file name keyed
-    by the source's and the flags' hash) and load it; (library, its path)
-    or (None, why not)."""
+def build_native(source: str, stem: str, flags=CXX_FLAGS):
+    """The C++ file ``source`` compiled with ``flags`` into BUILD_DIR, under
+    ``lib<stem>_<hash>.so`` keyed by the source's and the flags' hash (an
+    existing file is reused), and loaded; built at the first call for
+    ``stem`` and kept. Returns (library, its path) or (None, why not).
+    Nothing is written beside the source."""
+    if stem not in _native:
+        try:
+            _native[stem] = _compile(source, stem, flags)
+        except (OSError, subprocess.SubprocessError) as e:
+            _native[stem] = (None, f"{type(e).__name__}: {e}")
+    return _native[stem]
+
+
+def _compile(source: str, stem: str, flags):
     cxx = shutil.which(os.environ.get("CXX", "g++"))
-    if cxx is None or not os.path.exists(NATIVE_SOURCE):
-        return None, "no C++ compiler or no native/marching_tets.cpp"
-    with open(NATIVE_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libmarching_tets_{digest}.so")
+    if cxx is None or not os.path.exists(source):
+        return None, f"no C++ compiler or no {os.path.relpath(source, _ROOT)}"
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, NATIVE_SOURCE], capture_output=True, text=True,
-                              timeout=120)
+        proc = subprocess.run([cxx, *flags, "-o", tmp, source], capture_output=True, text=True, timeout=120)
         if proc.returncode != 0:
             return None, f"g++ failed ({proc.returncode}): {proc.stderr.strip()[:200]}"
         os.replace(tmp, out)
-    lib = ctypes.CDLL(out)
-    lib.marching_tets.restype = ctypes.c_int64
-    lib.marching_tets.argtypes = [
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-    ]
-    return lib, out
+    return ctypes.CDLL(out), out
 
 
 def native_lib():
-    """The native library, built at the first call; None when it cannot be
-    built (``_native["note"]`` says why)."""
-    if "lib" not in _native:
-        try:
-            lib, note = _build_native()
-        except (OSError, subprocess.SubprocessError) as e:
-            lib, note = None, f"{type(e).__name__}: {e}"
-        _native["lib"], _native["note"] = lib, note
-    return _native["lib"]
+    """The marching-tetrahedra library, built at the first call; None when
+    it cannot be built (``build_native``'s note says why)."""
+    lib, _ = build_native(NATIVE_SOURCE, "marching_tets")
+    if lib is not None:
+        lib.marching_tets.restype = ctypes.c_int64
+        lib.marching_tets.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ]
+    return lib
 
 
 _TETS = np.array([[0, 5, 1, 3], [0, 5, 3, 7], [0, 5, 7, 4], [0, 7, 3, 2], [0, 7, 2, 6], [0, 7, 6, 4]])
@@ -136,9 +141,9 @@ def marching_tets(grid: np.ndarray, iso: float) -> np.ndarray:
     """Triangle soup [T, 3, 3] in grid-index coordinates."""
     lib = native_lib()
     if lib is None:
-        print(f"[mesh] marching tetrahedra: numpy ({_native['note']})")
+        print(f"[mesh] marching tetrahedra: numpy ({build_native(NATIVE_SOURCE, 'marching_tets')[1]})")
         return _marching_tets_numpy(grid, iso)
-    print(f"[mesh] marching tetrahedra: native ({os.path.basename(_native['note'])})")
+    print(f"[mesh] marching tetrahedra: native ({os.path.basename(build_native(NATIVE_SOURCE, 'marching_tets')[1])})")
     g = np.ascontiguousarray(grid, np.float32)
     ptr = g.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
     n = lib.marching_tets(ptr, *g.shape, iso, None, 0)

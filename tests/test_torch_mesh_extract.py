@@ -41,7 +41,8 @@ def test_numpy_marching_tets_equals_jax():
 def test_native_equals_numpy_after_welding():
     lib = tm.native_lib()
     if lib is None:
-        pytest.fail(f"the native marching tetrahedra did not build: {tm._native['note']}")
+        pytest.fail(f"the native marching tetrahedra did not build: "
+                    f"{tm.build_native(tm.NATIVE_SOURCE, 'marching_tets')[1]}")
     grid = field16()
     got = tm.marching_tets(grid, 10.0)
     want = tm._marching_tets_numpy(grid, 10.0)

@@ -35,6 +35,60 @@ def test_port_imports_no_jax():
     assert "foreign: []" in out.stdout
 
 
+# the card's machine has none of these: every port module must import (and
+# the viewer's frame encoder run) with each of them unimportable
+_BLOCKED = ("PIL", "imageio", "cv2", "transformers", "ultralytics", "jax", "jaxlib")
+_IMPORT_BLOCKED = r"""
+import importlib, importlib.abc, sys
+BLOCKED = %r
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is not installed on the card's machine")
+sys.meta_path.insert(0, Block())
+""" % (_BLOCKED,) + _IMPORT_ALL + r"""
+import numpy as np
+from focnerf_tpu_torch.data.png import decode_png, encode_png
+frame = np.arange(4 * 6 * 3, dtype=np.uint8).reshape(4, 6, 3)
+assert (decode_png(encode_png(frame)) == frame).all()
+# one frame served through the viewer's handler, as on the card
+import json, threading, urllib.request
+from http.server import ThreadingHTTPServer
+from focnerf_tpu_torch.viewer.server import ViewerState, make_handler
+state = ViewerState(lambda pose, intr, H, W, t: np.full((H, W, 3), 0.5, np.float32), W=16, H=16)
+srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+th = threading.Thread(target=srv.serve_forever)
+th.start()
+try:
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/render",
+                                 data=json.dumps({"theta": 0.1, "phi": 0.1, "radius": 2.0}).encode())
+    served = decode_png(urllib.request.urlopen(req, timeout=30).read())
+finally:
+    srv.shutdown()
+    srv.server_close()
+    th.join(10)
+assert served.shape == (4, 4, 3) and (served == 127).all(), served
+new = ("viewer.server", "apps.viewer_app", "train.lpips_npz", "data.native_loader")
+print("imported:", all("focnerf_tpu_torch." + n in names for n in new))
+def blocked(n):
+    try:
+        importlib.import_module(n)
+    except ImportError:
+        return True
+    return False
+print("blocked:", sorted(n for n in BLOCKED if blocked(n)))
+"""
+
+
+def test_port_imports_with_the_cards_packages_missing():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_BLOCKED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "foreign: []" in out.stdout and "imported: True" in out.stdout
+    assert f"blocked: {sorted(_BLOCKED)}" in out.stdout
+
+
 def test_kernel_module_imports_without_nvcc(monkeypatch):
     from focnerf_tpu_torch.ops import _build, composite, hashgrid
 

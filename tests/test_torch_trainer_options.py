@@ -4,7 +4,8 @@ profiler's busy time, on the CPU:
   - the CLIP rand-pose branch is refused by name (not silently dropped), and
     the sampling options reach the dataset;
   - ``evaluate`` reports PSNR, SSIM and LPIPS as JAX's does;
-  - ``--grid_int8`` and ``--no-preload`` each print why they are ignored;
+  - ``--grid_int8`` prints why it is ignored (``--no-preload`` is honoured:
+    the host pipeline, tests/test_torch_native_loader.py);
   - ``utils/measure.busy_ms`` counts overlapping device events once.
 """
 
@@ -80,9 +81,9 @@ def test_evaluate_reports_the_jax_metrics(scene, tmp_path):
 
 @pytest.mark.parametrize("flags,said", [
     (["--grid_int8"], ["--grid_int8 is ignored"]),
-    (["--no-preload"], ["--no-preload is ignored"]),
-    (["--grid_int8", "--no-preload"], ["--grid_int8 is ignored", "--no-preload is ignored"]),
-    (["-O", "--no-preload"], []),  # -O preloads: nothing is ignored
+    (["--no-preload"], []),  # the host pipeline: honoured, nothing to say
+    (["--grid_int8", "--no-preload"], ["--grid_int8 is ignored"]),
+    (["-O", "--no-preload"], []),  # -O preloads
     ([], []),
 ])
 def test_ignored_options_are_announced(capsys, flags, said):
