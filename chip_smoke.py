@@ -43,8 +43,9 @@ non-zero exit code and no result line:
      ``composite_rays_resume`` once per round of the eval, the loss must
      fall by half, the val PSNR must reach 20 dB and a checkpoint must
      exist; then ``--test -O`` serves from the trained checkpoint (a
-     trained, sparse grid); the val views are evaluated with ``iter`` (all
-     4), ``iter_dev`` (1) and ``oneshot`` (1) (s/view, rounds, launches,
+     trained, sparse grid); the val views are evaluated with ``iter`` (1;
+     the training's own eval renders all 4 with it), ``iter_dev`` (1) and
+     ``oneshot`` (1) (s/view, rounds, launches,
      PSNR: the two iterative renders must agree within 1e-4 mean per view
      and neither may fall 0.5 dB below ``oneshot`` on its view); 3 more steps
      are profiled: stage times, the device's busy share and top kernels;
@@ -72,7 +73,8 @@ non-zero exit code and no result line:
      beside the first, constant non-zero object features) is trained with
      ``main_nerf -O2 --c2f 50:8,100:12`` on a scene with the same cameras
      (ms/step per c2f stage; the table gradient once a step, on the columns
-     of that step's level subset); both objects are laid
+     of that step's level subset; its eval of one val view launches
+     ``composite_rays_resume``); both objects are laid
      out as ``<root>/ws_<obj>/checkpoints`` with ``<root>/obj_feats/``, and
      ``combined`` composes the val views of both spheres together (occupancy
      path, K=2 resident): s/view, peak memory, PSNR_w >= 20 dB, the forward
@@ -160,8 +162,8 @@ non-zero exit code and no result line:
      time's analytic spheres) with its s/frame and PSNR against the
      analytic spheres (floor 15 dB for the static kinds);
      train-while-viewing on phase 5's scene in a fresh workspace: two
-     16-step bursts behind a server with renders between them, finite
-     losses, each backward kernel once a step, save_ckpt through /action, no
+     16-step bursts behind a server with renders between them (at least
+     one between two steps of one burst), finite losses, each backward kernel once a step, save_ckpt through /action, no
      step after the pause, the threads joined;
  21. LPIPS (``[lpips]``): with a random-weight npz in FOCNERF_LPIPS_NPZ, a
      Trainer on phase 5's checkpoint evaluates the val views and reports
@@ -176,6 +178,22 @@ non-zero exit code and no result line:
      pixels their rays leave through; then the trained model steps on host
      and on preloaded batches in turns for ms/step.
 
+ 23. CLIP (``[clip]``): a ``main_nerf -O --n_chunks 0 --rand_pose 3``
+     trainer on phase 5's scene with a seeded stand-in CLIP loss (the
+     repository holds no CLIP weights; ``StandInCLIP``) trains 20 steps at
+     full width, every fourth a GT-free CLIP step on a 66x66 random-pose
+     image (4356 rays x 128 samples): finite losses, the CLIP steps where
+     the schedule puts them, each backward kernel once a step, peak memory;
+     one CLIP step on the card against the CPU in fp32 (loss 1e-4 relative,
+     every gradient 1e-2 rel L2 and nonzero); ms per CLIP step; the
+     composite forward and backward at [4356, 128] and the table gradient
+     at 557,568 points held against their plain versions (1e-5) and timed;
+     then ``main_nerf --rand_pose 0 --clip_text "a sphere"`` on four of
+     phase 5's views without a sidecar or ``--disable_yolo``: this machine
+     has neither ultralytics nor transformers, so it writes the
+     background-only sidecar, says once that no CLIP loss is available and
+     trains its 4 steps.
+
 Every phase prints ``[phase-start] <name>`` before it starts (so a failure
 names its phase) and its seconds after (``[phase] <name>: s``).
 
@@ -187,8 +205,9 @@ every kernel with its launches on the training path (``launches``), in the
 voxel runs (``launches_voxel``), in the uniform training run
 (``launches_uniform``), in the second object's ``-O2`` run
 (``launches_o2``), in phase 17's D-NeRF training run (``launches_dnerf``), in
-phase 20's train-while-viewing run (``launches_viewer``) and in phase 22's
-``--no-preload`` run (``launches_no_preload``).
+phase 20's train-while-viewing run (``launches_viewer``), in phase 22's
+``--no-preload`` run (``launches_no_preload``) and in phase 23's 20 steps
+with CLIP steps (``launches_clip``).
 """
 
 from __future__ import annotations
@@ -202,9 +221,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-VIEWS, RES, CHUNK = 4, 800, 4096
+# test views served (cut from 4 to pay for [clip]), side, rays per chunk
+VIEWS, RES, CHUNK = 2, 800, 4096
 # 400 steps, from 500, for the 900 s target on slower hosts: the loss is
-# flat from step 250 (0.0030-0.0043 an epoch, val 26.62-26.64 dB at 500)
+# flat from step 250 (0.0030-0.0043 an epoch, val 26.62-26.64 dB at 500).
+# Fewer do not keep the gates' margins: at 350 steps phase 5 read 23.86 dB
+# and the composition's PSNR_w 20.66 (gate 20), at 300 22.93 dB
 TRAIN_ITERS, TRAIN_VIEWS, VAL_VIEWS = 400, 50, 4
 CAMERA_RADIUS, SPHERE_RADIUS = 3.0, 0.8  # ngp units; the bound box is [-2, 2]^3
 # the composition's val cameras: every eye outside the bound box, as the
@@ -220,10 +242,13 @@ SECOND, SECOND_ITERS = "ball", 150
 # the second object's -O2 stages: (end step, active levels), at epoch ends
 SECOND_C2F = ((50, 8), (100, 12))
 # the uniform-sampling run (no -O): steps, (samples, importance samples), TV weight
-UNIFORM_ITERS, UNIFORM_STEPS, UNIFORM_TV = 150, (128, 64), 1e-4  # steps cut from 300 for the time limit
+# steps cut from 300 for the time limit (at 100 the mesh had no faces: the
+# field's density stayed under the threshold 10)
+UNIFORM_ITERS, UNIFORM_STEPS, UNIFORM_TV = 150, (128, 64), 1e-4
 # views each eval renderer renders in phase 5 (the rest: VAL_VIEWS); cut
-# from 4 (iter_dev: then from 2) to keep the smoke within its time limit
-EVAL_VIEWS = {"iter_dev": 1, "oneshot": 1}
+# from 4 (iter_dev: then from 2; iter: as the training's own eval renders
+# all 4 with it) to keep the smoke within its time limit
+EVAL_VIEWS = {"iter": 1, "iter_dev": 1, "oneshot": 1}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # the card's bf16 shear-warp against the CPU's fp32 render of the same volume
@@ -594,9 +619,9 @@ def phase_composite_backward_kernel() -> dict:
     }
 
 
-def ray_points01(cfg, samples: int, g):
-    """[CHUNK * samples, 3] points in [0, 1]^3: ``samples`` evenly spaced
-    along each of CHUNK rays from one camera through the bound box."""
+def ray_points01(cfg, samples: int, g, n: int = CHUNK):
+    """[n * samples, 3] points in [0, 1]^3: ``samples`` evenly spaced along
+    each of n rays from one camera through the bound box."""
     import numpy as np
     import torch
 
@@ -606,7 +631,7 @@ def ray_points01(cfg, samples: int, g):
 
     dev = torch.device("cuda")
     pose = torch.from_numpy(rand_poses(np.random.default_rng(5), 1, radius=4.0)[0]).to(dev)
-    d = torch.randn(CHUNK, 3, generator=g, device=dev) * 0.2 + pose[:3, 2]
+    d = torch.randn(n, 3, generator=g, device=dev) * 0.2 + pose[:3, 2]
     d = d / d.norm(dim=-1, keepdim=True)
     o = pose[:3, 3].expand(d.shape)
     near, far = near_far_from_aabb(o, d, default_aabb(cfg, dev), 0.2)
@@ -615,12 +640,12 @@ def ray_points01(cfg, samples: int, g):
     return ((x + cfg.bound) / (2 * cfg.bound)).reshape(-1, 3)
 
 
-def table_grad_inputs(cfg, samples: int = 128, stochastic: bool = True, one_cell: bool = False):
-    """Rows and weights of the encode of 4096 rays x ``samples`` points
-    through the bound box (stochastic K=1 corners: the -O training encode;
-    else 8 exact corners per level), and a cotangent. ``one_cell``: every
-    point lies in one level-0 cell instead, the most duplicated rows an
-    input can have."""
+def table_grad_inputs(cfg, samples: int = 128, stochastic: bool = True, one_cell: bool = False, n: int = CHUNK):
+    """Rows and weights of the encode of n rays x ``samples`` points through
+    the bound box (stochastic K=1 corners: the -O training encode; else 8
+    exact corners per level), and a cotangent. ``one_cell``: every point
+    lies in one level-0 cell instead, the most duplicated rows an input can
+    have."""
     import torch
 
     from focnerf_tpu_torch.ops import hashgrid as thg
@@ -628,7 +653,7 @@ def table_grad_inputs(cfg, samples: int = 128, stochastic: bool = True, one_cell
     dev = torch.device("cuda")
     spec = cfg.grid_spec
     g = torch.Generator(device="cuda").manual_seed(2)
-    x01 = ray_points01(cfg, samples, g)
+    x01 = ray_points01(cfg, samples, g, n)
     if one_cell:  # level 0's cell [8, 9)^3 of pos = x * scale + 0.5
         scale = thg._level_scale(spec, 0)
         x01 = (7.5 + 0.98 * torch.rand(x01.shape, generator=g, device=dev)) / scale
@@ -965,7 +990,7 @@ def sphere_view(pose, fl: float, spheres=(SPHERE,), res: int = RES):
 
 
 def write_training_scene(root: str, scale: float, obj: str = OBJECT, spheres=(SPHERE,), feat: float = 0.0,
-                         splits=("train", "val", "test"), radius: float = CAMERA_RADIUS):
+                         splits=("train", "val", "test"), radius: float = CAMERA_RADIUS, val_views: int = VAL_VIEWS):
     """Blender-layout ``splits`` of analytic spheres at RES^2 (focal 1.2 *
     width), cameras on a sphere of CAMERA_RADIUS (ngp units) looking at the
     origin, and the object-mask sidecar that YOLO preprocessing would write
@@ -974,7 +999,8 @@ def write_training_scene(root: str, scale: float, obj: str = OBJECT, spheres=(SP
     object's alpha from its mask, so the mask is what makes the pixels
     around the object transparent in training. Every scene draws the same
     cameras (train, then val, then test) on a sphere of ``radius``,
-    whichever splits it writes."""
+    whichever splits it writes; the val split keeps the first
+    ``val_views``."""
     import numpy as np
 
     from focnerf_tpu_torch.core.camera import rand_poses
@@ -986,6 +1012,9 @@ def write_training_scene(root: str, scale: float, obj: str = OBJECT, spheres=(SP
         poses = rand_poses(rng, n, radius=radius)
         if split not in splits:
             continue
+        if split == "val":
+            poses = poses[:val_views]
+            n = len(poses)
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames, paths, masks = [], [], []
         for i, pose in enumerate(poses):
@@ -1311,7 +1340,7 @@ def phase_backward_mask(trainer, ds, dev):
 def phase_eval_renderers(trainer, ds):
     """The trained model's val views through each eval renderer (the EMA
     params, as ``evaluate``): s/view, rounds per view, composite_rays_resume
-    launches and val PSNR of each, ``iter`` on every view, ``iter_dev`` on
+    launches and val PSNR of each, ``iter`` on the first EVAL_VIEWS["iter"], ``iter_dev`` on
     the first EVAL_VIEWS["iter_dev"] and ``oneshot`` (~25-36 s a view) on
     the first EVAL_VIEWS["oneshot"]. ``iter`` and ``iter_dev`` run the same
     per-ray rounds (only the batch shapes of the bf16 MLP products differ):
@@ -1615,7 +1644,9 @@ def phase_second_object(work: str, dev):
     epoch boundaries, so the epoch times give each stage's ms/step; with
     ``--grad_level_phases 2`` each step's table gradient covers half the
     stage's levels. The table-gradient kernel must launch once a step, on
-    the columns of that step's level subset. Returns (workspace, launches)."""
+    the columns of that step's level subset. Its eval renders one val view
+    with the iterative renderer (``composite_rays_resume`` once a round)
+    over the -O2 field. Returns (workspace, launches)."""
     import torch
 
     from focnerf_tpu_torch.apps import main_nerf
@@ -1626,7 +1657,9 @@ def phase_second_object(work: str, dev):
     c2f = ",".join(f"{end}:{lv}" for end, lv in SECOND_C2F)
     argv = [scene, "-O2", "--c2f", c2f, "--workspace", ws, "--disable_yolo", "--iters", str(SECOND_ITERS),
             "--mesh_res", "0", "--ckpt_interval", "10"]
-    write_training_scene(scene, parse_options(argv).scale, obj=SECOND, spheres=(BALL,), feat=0.5)
+    # one val view (cut from four for the time limit), no test split
+    write_training_scene(scene, parse_options(argv).scale, obj=SECOND, spheres=(BALL,), feat=0.5,
+                         splits=("train", "val"), val_views=1)
     columns, kernel = [], thg.hashgrid_table_grad
 
     def capture(rows, weights, g, cols, n_rows, level_dim=None):
@@ -1658,7 +1691,7 @@ def phase_second_object(work: str, dev):
               for active in [next((lv for end, lv in SECOND_C2F if step < end), 16)]]
     print(f"[compose] second object '{SECOND}' (radius {BALL[1]} at {BALL[0]}): main_nerf -O2 --c2f {c2f} "
           f"(grad_level_phases {trainer.grad_level_phases}) --iters {SECOND_ITERS} in {time.time() - t0:.1f} s with "
-          f"loading and the final eval; stage boundaries crossed at steps {[end for end, _ in SECOND_C2F]}; "
+          f"loading and the eval of 1 val view; stage boundaries crossed at steps {[end for end, _ in SECOND_C2F]}; "
           + "; ".join(stages) + f" (epoch times, the first with its warm-up); loss last 50 steps "
           f"{sum(trainer.step_losses[-50:]) / 50:.5f}, val PSNR {trainer.last_eval_results['PSNR']:.3f} dB; table "
           f"gradient columns per launch {sorted(set(columns))}; launches {launches}")
@@ -1666,6 +1699,8 @@ def phase_second_object(work: str, dev):
         raise AssertionError(f"-O2: {len(columns)} table-gradient launches with columns {columns}, want {want_j}")
     if launches["composite_rays_fused_backward"] != SECOND_ITERS:
         raise AssertionError(f"-O2: composite backward launched {launches}, want {SECOND_ITERS}")
+    if not launches["composite_rays_resume"]:
+        raise AssertionError(f"-O2: the eval's iterative renderer launched no composite_rays_resume: {launches}")
     return ws, launches
 
 
@@ -3207,7 +3242,8 @@ def phase_viewer(work: str, dev, smi: str):
     composite forward once per 4096-ray chunk; then train-while-viewing
     (``_train_while_viewing`` behind a ViewerState and a server on
     127.0.0.1) on phase 5's scene in a fresh workspace: VIEWER_BURSTS bursts
-    of 16 steps with renders between them, every loss finite, each backward
+    of 16 steps with renders between them, at least one of them between two
+    steps of one burst, every loss finite, each backward
     kernel once a step, save_ckpt through /action, no step after the pause.
     Returns the train-while-viewing run's launches."""
     import threading
@@ -3222,6 +3258,7 @@ def phase_viewer(work: str, dev, smi: str):
     from focnerf_tpu_torch.data.dnerf_provider import DNeRFDataset
     from focnerf_tpu_torch.data.png import decode_png
     from focnerf_tpu_torch.data.provider import DatasetOptions, NeRFDataset
+    from focnerf_tpu_torch.render import renderer as renderer_mod
     from focnerf_tpu_torch.train.checkpoints import CheckpointManager, load_model_config
     from focnerf_tpu_torch.train.trainer import Trainer
     from focnerf_tpu_torch.viewer.server import ViewerState, make_handler
@@ -3314,10 +3351,19 @@ def phase_viewer(work: str, dev, smi: str):
     # train-while-viewing, at the full width of main_nerf -O, in a fresh workspace
     wsv = os.path.join(work, "viewer_train_ws")
     opt = parse_options([scene, "--workspace", wsv, "-O"])
+    steps, losses, inside, at_render, want = [], [], [], [], 16 * VIEWER_BURSTS
+
+    def counted_render(*a, **k):  # inside the lock: the steps done before this render
+        at_render.append(len(inside))
+        return real_render(*a, **k)
+
     t0 = time.perf_counter()
-    render_fn, train_fn, actions = viewer_app._train_while_viewing(opt, dev)
+    real_render, renderer_mod.render_image = renderer_mod.render_image, counted_render
+    try:  # _train_while_viewing's render_fn binds render_image when it is built
+        render_fn, train_fn, actions = viewer_app._train_while_viewing(opt, dev)
+    finally:
+        renderer_mod.render_image = real_render
     setup_s = time.perf_counter() - t0
-    steps, losses, want = [], [], 16 * VIEWER_BURSTS
 
     def step():
         t1 = time.perf_counter()
@@ -3327,7 +3373,7 @@ def phase_viewer(work: str, dev, smi: str):
             state.paused = True  # takes effect when this burst ends
         return losses[-1]
 
-    inside, real_step = [], Trainer._train_step
+    real_step = Trainer._train_step
 
     def timed(self, ds):  # the step alone, inside the lock (synchronized by its loss read)
         t1 = time.perf_counter()
@@ -3370,19 +3416,23 @@ def phase_viewer(work: str, dev, smi: str):
     peak = torch.cuda.max_memory_allocated() / 2**30
     ckpt = CheckpointManager(os.path.join(f"{wsv}_{OBJECT}", "checkpoints")).latest_step()
     ms, alone = np.asarray(steps[1:]) * 1e3, np.asarray(inside[1:]) * 1e3
+    in_burst = [k for k in at_render if 0 < k < want and k % 16]  # between steps k and k + 1 of one burst
     print(f"[viewer] train-while-viewing (main_nerf -O width, {opt.num_rays} rays a step): set-up {setup_s:.1f} s; "
           f"{len(losses)} steps in {VIEWER_BURSTS} bursts, median {np.median(ms):.2f} ms/step with the wait for the "
           f"lock, {np.median(alone):.2f} inside it (host clock, after the first step), {renders} renders between "
-          f"them, median "
-          f"{np.median(render_ms):.1f} ms a /render; loss first {losses[0]:.5f}, last {losses[-1]:.5f}; peak "
+          f"them, {len(in_burst)} of them inside a burst (steps done when each render drew: {at_render}); "
+          f"{len(render_ms)} /render calls, the first {render_ms[0]:.1f} ms (its warm-up), median of the rest "
+          f"{np.median(render_ms[1:]):.1f} ms (the wait for the lock included); loss first {losses[0]:.5f}, "
+          f"last {losses[-1]:.5f}; peak "
           f"memory {peak:.3f} GiB; launches {launches}; save_ckpt: {saved!r}, checkpoint step {ckpt}; steps after "
           f"the pause {after - want}; threads joined {joined and not th.is_alive()} ({smi})")
     if not np.isfinite(losses).all():
         raise AssertionError(f"[viewer] non-finite loss while viewing: {losses}")
     if launches["hashgrid_table_grad"] != want or launches["composite_rays_fused_backward"] != want:
         raise AssertionError(f"[viewer] backward kernels launched {launches}, want once per step ({want})")
-    if renders < 2 or launches["composite_rays_fused"] <= want:
-        raise AssertionError(f"[viewer] {renders} renders between the steps, launches {launches}")
+    if renders < 2 or not in_burst or launches["composite_rays_fused"] <= want:
+        raise AssertionError(f"[viewer] {renders} renders between the steps, {len(in_burst)} inside a burst, "
+                             f"launches {launches}")
     if ckpt != want or "checkpoint saved" not in saved:
         raise AssertionError(f"[viewer] save_ckpt answered {saved!r}, latest checkpoint {ckpt}")
     if after != want or not joined or th.is_alive():
@@ -3406,9 +3456,10 @@ def lpips_weights_npz(path: str, seed: int = 0):
 
 def phase_lpips(work: str, dev, smi: str):
     """Phase 21: with a random-weight npz in ``FOCNERF_LPIPS_NPZ``, a Trainer
-    on phase 5's checkpoint evaluates the val views and must report ``LPIPS
-    (alex, torch)``; ``lpips_distance`` on the card must equal the CPU's
-    within LPIPS_REL relative on one view pair."""
+    on phase 5's checkpoint evaluates the val view of phase 6b's scene (phase
+    5's first) and must report ``LPIPS (alex, torch)``; ``lpips_distance``
+    on the card must equal the CPU's within LPIPS_REL relative on one view
+    pair."""
     import numpy as np
     import torch
 
@@ -3424,7 +3475,7 @@ def phase_lpips(work: str, dev, smi: str):
     try:
         trainer = Trainer("ngp", opt.nerf_config(), workspace=os.path.join(work, f"train_ws_{OBJECT}"),
                           use_checkpoint="latest", use_occupancy=True, eval_renderer="iter", device=dev)
-        val = train_dataset(scene, dev, "val")
+        val = train_dataset(os.path.join(work, "uniform_scene"), dev, "val")
         t0 = time.perf_counter()
         results = trainer.evaluate(val, save_images=False)
         eval_s = time.perf_counter() - t0
@@ -3465,16 +3516,18 @@ def pixel_indices(batch, pose, intr):
     return d[:, 0] / d[:, 2] * fx + cx - 0.5, d[:, 1] / d[:, 2] * fy + cy - 0.5
 
 
-def phase_no_preload(work: str, dev, smi: str):
-    """Phase 22: ``main_nerf <phase 5 scene> --no-preload --cuda_ray --iters
-    NO_PRELOAD_ITERS`` at full width (no -O: it forces preload): the native
+def phase_no_preload(work: str, dev, smi: str, pre):
+    """Phase 22: ``main_nerf <phase 6b scene> --no-preload --cuda_ray --iters
+    NO_PRELOAD_ITERS`` at full width (no -O: it forces preload; the scene is
+    phase 5's with one val view to evaluate): the native
     library must build (its path printed) and the train split stay on the
     host; on the run's first 3 batches the pixels must equal the preloaded
     image at the pixels their rays leave through within 1/255; the loss of
     the last 10 steps must be under the first 10's; each backward kernel once
     a step. Then the trained model steps on host and preloaded batches in
     turns (host, preloaded, preloaded, host; 16 steps each, one occupancy
-    update in each) for ms/step.
+    update in each) for ms/step. ``pre`` is phase 5's train split, preloaded
+    as ``main_nerf -O`` loads it (the same images).
     Returns the run's launches."""
     import numpy as np
     import torch
@@ -3492,7 +3545,7 @@ def phase_no_preload(work: str, dev, smi: str):
     print(f"[no-preload] native loader library: {native_loader.library_note()} ({time.perf_counter() - t0:.2f} s)")
     if not built:
         raise AssertionError("[no-preload] the native loader did not build")
-    scene, ws = os.path.join(work, "train_scene"), os.path.join(work, "nopreload_ws")
+    scene, ws = os.path.join(work, "uniform_scene"), os.path.join(work, "nopreload_ws")
     argv = [scene, "--no-preload", "--cuda_ray", "--workspace", ws, "--iters", str(NO_PRELOAD_ITERS),
             "--disable_yolo", "--mesh_res", "0"]
     captured, ends = [], []
@@ -3540,7 +3593,6 @@ def phase_no_preload(work: str, dev, smi: str):
         raise AssertionError(f"[no-preload] loss {first} -> {last}")
 
     details = mask_details_for(load_sidecar(scene, "train"), OBJECT)
-    pre = NeRFDataset(parse_options([scene]).dataset_options(), split="train", mask_details=details, device=dev)
     worst = 0.0
     for b in captured:
         v = int(b["view"])
@@ -3548,7 +3600,7 @@ def phase_no_preload(work: str, dev, smi: str):
         if not (np.abs(x - np.round(x)).max() < 1e-2 and np.abs(y - np.round(y)).max() < 1e-2):
             raise AssertionError("[no-preload] a ray does not leave through a pixel centre")
         inds = torch.as_tensor(np.round(y).astype(np.int64) * pre.W + np.round(x).astype(np.int64), device=dev)
-        want_px = pre.images[v][inds].float()
+        want_px = pre.images[v][inds].float()  # fp16 under -O: within 2^-11 of the uint8 value / 255
         worst = max(worst, float((b["pixels"].float() - want_px).abs().max()))
         if not torch.equal(b["ray_mask"], pre.masks_dev[v][inds]):
             raise AssertionError("[no-preload] a host batch's mask is not the image's")
@@ -3575,6 +3627,279 @@ def phase_no_preload(work: str, dev, smi: str):
     print(f"[no-preload] the trained model, 16 synchronized steps a window in turns (host, preloaded, preloaded, "
           f"host): host batches {[round(m, 2) for m in ms['host']]} ms/step, preloaded "
           f"{[round(m, 2) for m in ms['preloaded']]} ms/step ({smi})")
+    return launches
+
+
+CLIP_ITERS, CLIP_RAND_POSE = 20, 3  # [clip]: steps 3, 7, 11, 15, 19 are CLIP steps
+CLIP_CLI_VIEWS = 4  # [clip]'s CLI run without weights: one epoch of 4 steps
+CLIP_ROTATE = 16  # input copies [clip] times the composite kernels on in turn
+
+
+class StandInCLIP:
+    """A seeded, differentiable stand-in for the CLIP loss (the repository
+    holds no CLIP weights): the image [H, W, 3] resized to 224 as the port's
+    CLIP loss resizes it, normalized by CLIP's mean and std, pooled to 4 x 4,
+    projected by a fixed [48, 64] matrix and scored 1 - cos against a fixed
+    text vector."""
+
+    def __init__(self, device, seed: int = 0):
+        import torch
+
+        g = torch.Generator().manual_seed(seed)
+        self.proj = torch.randn(3 * 4 * 4, 64, generator=g).to(device)
+        text = torch.randn(64, generator=g)
+        self.text = (text / text.norm()).to(device)
+        self.mean = torch.tensor([0.48145466, 0.4578275, 0.40821073], device=device).reshape(3, 1, 1)
+        self.std = torch.tensor([0.26862954, 0.26130258, 0.27577711], device=device).reshape(3, 1, 1)
+
+    def __call__(self, image):
+        import torch.nn.functional as F
+
+        from focnerf_tpu_torch.train.clip_guidance import CLIP_SIZE, resize_bilinear
+
+        x = (resize_bilinear(image.permute(2, 0, 1)[None]) - self.mean) / self.std
+        emb = F.avg_pool2d(x, CLIP_SIZE // 4).reshape(1, -1) @ self.proj
+        return 1.0 - (emb / emb.norm() * self.text).sum()
+
+
+def clip_cli_scene(work: str) -> str:
+    """The first CLIP_CLI_VIEWS train views of phase 5's scene (the images
+    linked), with no YOLO sidecar and no val split."""
+    src, scene = os.path.join(work, "train_scene"), os.path.join(work, "clip_cli_scene")
+    os.makedirs(scene)
+    os.symlink(os.path.join(src, "train"), os.path.join(scene, "train"))
+    with open(os.path.join(src, "transforms_train.json")) as f:
+        tj = json.load(f)
+    tj["frames"] = tj["frames"][:CLIP_CLI_VIEWS]
+    with open(os.path.join(scene, "transforms_train.json"), "w") as f:
+        json.dump(tj, f)
+    return scene
+
+
+def phase_clip(work: str, dev, smi: str, ds):
+    """The CLIP rand-pose branch at full width (``[clip]``): (a) a ``main_nerf
+    -O --n_chunks 0 --rand_pose CLIP_RAND_POSE`` trainer on phase 5's scene
+    (``ds``, its train split as ``main_nerf -O`` loads it) with the seeded
+    stand-in loss trains CLIP_ITERS steps (finite losses,
+    the CLIP steps where the schedule puts them, each backward kernel once a
+    step); one CLIP step on the card against the CPU from the same weights,
+    rays and draws in fp32 (loss 1e-4 relative, every gradient 1e-2 rel L2,
+    the table's and the nets' nonzero); ms per CLIP step; the composite
+    forward and backward and the table gradient held against their plain
+    versions at the step's shapes and timed; (b) and (c) ``main_nerf
+    --rand_pose 0 --clip_text`` on a scene without a sidecar and without
+    ``--disable_yolo``: with neither transformers' weights nor ultralytics
+    on this machine it writes the background-only sidecar, says once that no
+    CLIP loss is available and trains on. Returns the launches of (a)."""
+    import contextlib
+    import dataclasses
+    import io
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps import main_nerf
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.data.yolo_sidecar import load_sidecar, yolo_available
+    from focnerf_tpu_torch.ops import hashgrid as thg
+    from focnerf_tpu_torch.ops.composite import (
+        composite_rays,
+        composite_rays_fused,
+        composite_rays_fused_backward,
+        group_width,
+    )
+    from focnerf_tpu_torch.train.state import clone_params, param_leaves
+    from focnerf_tpu_torch.train.steps import clip_step_draws, clip_step_loss
+    from focnerf_tpu_torch.train.trainer import Trainer
+    from focnerf_tpu_torch.utils.measure import counted_device_ms
+
+    # (a) the stand-in CLIP branch through the trainer
+    scene, ws = os.path.join(work, "train_scene"), os.path.join(work, "clip_ws")
+    opt = parse_options([scene, "-O", "--n_chunks", "0", "--rand_pose", str(CLIP_RAND_POSE), "--iters",
+                         str(CLIP_ITERS), "--ckpt", "scratch"])
+    trainer = Trainer("ngp", opt.nerf_config(), workspace=ws, device=dev, clip_loss_fn=StandInCLIP(dev),
+                      **main_nerf.trainer_options(opt))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    trainer.train(ds, None, max_epochs=1, steps_per_epoch=CLIP_ITERS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_clip = [s for s in range(CLIP_ITERS) if s % (CLIP_RAND_POSE + 1) == CLIP_RAND_POSE]
+    losses = np.asarray(trainer.step_losses)
+    batch = ds.rand_pose_batch(np.random.default_rng(11))
+    n, H, W, T = batch["rays_o"].shape[0], batch["H"], batch["W"], min(trainer.num_steps, 128)
+    print(f"[clip] main_nerf -O --n_chunks 0 --rand_pose {CLIP_RAND_POSE}, stand-in loss: {CLIP_ITERS} steps in "
+          f"{wall:.2f} s, CLIP steps {trainer.clip_steps} ({H}x{W} = {n} rays x {T} samples each), losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, peak memory {peak:.3f} GiB, launches {launches}")
+    if trainer.clip_steps != want_clip or len(losses) != CLIP_ITERS or not np.isfinite(losses).all():
+        raise AssertionError(f"[clip] schedule {trainer.clip_steps} (want {want_clip}) or losses {losses}")
+    if launches["hashgrid_table_grad"] != CLIP_ITERS or launches["composite_rays_fused_backward"] != CLIP_ITERS \
+            or launches["composite_rays_fused"] < CLIP_ITERS:
+        raise AssertionError(f"[clip] launches {launches}, want each backward kernel once a step ({CLIP_ITERS})")
+
+    # one CLIP step, card against CPU, fp32, from the trained weights
+    cfg32 = dataclasses.replace(trainer.cfg, compute_dtype=torch.float32)
+    draws = clip_step_draws(torch.Generator().manual_seed(5), cfg32, n, T, "cpu")
+    out, seconds = {}, {}
+    for where in ("cuda", "cpu"):
+        to = lambda t: t.to(where)  # noqa: E731
+        params = clone_params({k: [to(w) for w in v] if isinstance(v, list) else to(v)
+                               for k, v in trainer.state.params.items()}, requires_grad=True)
+        reset_counts()
+        t0 = time.time()
+        loss = clip_step_loss(params, cfg32, to(batch["rays_o"]), to(batch["rays_d"]),
+                              {k: to(v) for k, v in draws.items()}, StandInCLIP(where), H=H, W=W, num_steps=T,
+                              min_near=trainer.min_near)
+        loss.backward()
+        grads = [p.grad.cpu() for p in param_leaves(params)]
+        seconds[where] = time.time() - t0
+        if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
+                                                     composite_rays_fused_backward=1, hashgrid_table_grad=1):
+            raise AssertionError(f"[clip] the reference CLIP step on the card launched {read_counts()}")
+        out[where] = (float(loss.detach()), grads)
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    rels = [float((a - b).norm() / b.norm().clamp(min=1e-30)) for a, b in zip(gg, gc)]
+    live = [int((g != 0).sum()) for g in gc]
+    print(f"[clip] one CLIP step, {n} rays x {T} samples, fp32, card vs CPU ({seconds['cuda']:.2f} s / "
+          f"{seconds['cpu']:.2f} s): loss {lg:.6g} vs {lc:.6g} (rel {loss_rel:.3g}, limit 1e-4), gradient rel L2 "
+          f"errors {', '.join(f'{r:.3g}' for r in rels)} (limit 1e-2); nonzero entries per leaf {live}")
+    if not (loss_rel <= 1e-4 and max(rels) <= 1e-2):
+        raise AssertionError("[clip] card and CPU CLIP steps disagree")
+    if not all(live):
+        raise AssertionError(f"[clip] a leaf got no gradient through the CLIP loss: {live}")
+
+    # ms per CLIP step, the trainer's own step (bf16 MLPs), warm
+    step_ms = []
+    rng = np.random.default_rng(12)
+    for _ in range(4):
+        b = ds.rand_pose_batch(rng)
+        d = clip_step_draws(trainer.generator, trainer.cfg, n, T, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._clip_step_fn(trainer.state, b["rays_o"], b["rays_d"], d)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[clip] CLIP step ms (synchronized, after the run's 5): {', '.join(f'{x:.2f}' for x in step_ms)}; "
+          f"median {float(np.median(step_ms)):.2f} ms ({smi})")
+    del trainer, params, grads, out
+
+    # the kernels at the CLIP step's shapes: [n, 128] at T_thresh 0 on a
+    # white background, and the -O encode's table gradient at n x 128 points
+    def clock(fn):  # device ms per call, unless the trace lost events
+        ms, got_n, want_n = counted_device_ms(fn)
+        if got_n == want_n > 0:
+            return f"{ms:.5f} ms"
+        return f"not measured ({got_n} of {want_n} device events recorded)"
+
+    sig, rgb, dts, ts, _ = composite_inputs(T, thin=True, n=n)
+    ts = ts / ts[:, -1:]
+    got = composite_rays_fused(sig, rgb, dts, ts, bg_color=1.0, T_thresh=0.0)
+    ref = composite_rays(sig, rgb, dts, ts, bg_color=1.0, T_thresh=0.0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cot = tuple(torch.randn(sh, generator=g, device="cuda") for sh in ((n, 3), (n,), (n,)))
+
+    def kernel_bwd():
+        return composite_rays_fused_backward(sig, rgb, dts, ts, 1.0, got, cot, T_thresh=0.0)
+
+    def plain_bwd(s_=sig, c_=rgb, d_=dts, t_=ts, *_):
+        s_, c_ = s_.detach().requires_grad_(), c_.detach().requires_grad_()
+        o = composite_rays(s_, c_, d_, t_, bg_color=1.0, T_thresh=0.0)
+        return torch.autograd.grad((o["image"], o["weights_sum"], o["depth"]), (s_, c_), cot)
+
+    dk, dp = kernel_bwd(), plain_bwd()
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(a).all() for a in (*got, *dk)):
+        raise AssertionError(f"[clip] composite kernels: non-finite output at [{n},{T}]")
+    f_err = max(float((a - b).abs().max()) for a, b in zip(got, (ref["image"], ref["weights_sum"], ref["depth"])))
+    b_err = max(float((a - b).abs().max()) for a, b in zip(dk, dp))
+    # timed on CLIP_ROTATE copies of the inputs in turn (14 MB each, more
+    # than 4x the 50 MB L2 together), so every launch reads them from HBM
+    # and the times compare with the byte bounds
+    pool = [tuple(x.clone() for x in (sig, rgb, dts, ts, *got)) for _ in range(CLIP_ROTATE)]
+    turn = itertools.cycle(pool)
+
+    def rotated(fn):
+        return lambda: fn(*next(turn))
+
+    ms = clock(rotated(lambda s_, c_, d_, t_, *o: composite_rays_fused(s_, c_, d_, t_, bg_color=1.0, T_thresh=0.0)))
+    plain_ms = clock(rotated(lambda s_, c_, d_, t_, *o: composite_rays(s_, c_, d_, t_, bg_color=1.0, T_thresh=0.0)))
+    bms = clock(rotated(lambda s_, c_, d_, t_, *o: composite_rays_fused_backward(s_, c_, d_, t_, 1.0, o, cot,
+                                                                                 T_thresh=0.0)))
+    bplain_ms = clock(rotated(plain_bwd))
+    del pool, turn
+    # bounds as phase 3's: every sample read at T_thresh 0 (24 B, ~17 fp32
+    # operations; the backward 35 and 16 B written a sample), the outputs
+    # (20 B a ray; the backward reads them and their cotangents, 52 B)
+    read = n * T
+    f_bound = max((read * 24 + 12 + n * 20) / HBM_BYTES_PER_S, read * 17 / FP32_OPS_PER_S) * 1e3
+    b_bound = max((read * 24 + n * 52 + read * 16) / HBM_BYTES_PER_S, read * 35 / FP32_OPS_PER_S) * 1e3
+    print(f"[clip] composite_rays_fused [{n},{T}] T_thresh=0, white background, {group_width(T)} lanes per ray: "
+          f"max_abs_err {f_err:.3g} (limit 1e-5), device {ms}, plain {plain_ms}, bound "
+          f"{f_bound:.5f} ms (bytes; times over {CLIP_ROTATE} input copies in turn, read from HBM)")
+    print(f"[clip] composite_rays_fused_backward [{n},{T}] T_thresh=0: max_abs_err {b_err:.3g} (limit 1e-5), "
+          f"device {bms}, plain (forward + autograd) {bplain_ms}, bound {b_bound:.5f} ms (bytes)")
+    if not (f_err <= 1e-5 and b_err <= 1e-5):
+        raise AssertionError(f"[clip] composite kernels disagree with their plain versions: {f_err} {b_err}")
+    del sig, rgb, dts, ts, got, ref, dk, dp
+
+    rows_t, weights, cot, cols, n_rows = table_grad_inputs(opt.nerf_config(), samples=T, n=n)
+    m, J = rows_t.shape
+    C = opt.nerf_config().level_dim
+    col_level = torch.tensor(cols, dtype=torch.int32, device=rows_t.device)
+    got = thg.hashgrid_table_grad(rows_t, weights, cot, cols, n_rows)
+    want = thg.table_grad_plain(rows_t, weights, cot, col_level, n_rows, C)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    t_err = float((got - want).abs().max())
+    if not (t_err <= 1e-5 * scale and torch.equal(got == 0, want == 0)):
+        raise AssertionError(f"[clip] table-gradient kernel disagrees with index_add_: {t_err / scale}")
+    contrib = (weights[..., None] * cot.reshape(m, -1, C).index_select(1, col_level)).reshape(-1, C)
+    flat = rows_t.reshape(-1)
+    ms = clock(lambda: thg.hashgrid_table_grad(rows_t, weights, cot, cols, n_rows))
+    plain_ms = clock(lambda: thg.table_grad_plain(rows_t, weights, cot, col_level, n_rows, C))
+    lib_ms = clock(lambda: torch.zeros((n_rows, C), device=flat.device).index_add_(0, flat, contrib))
+    nbytes = m * J * 8 + cot.numel() * 4 + n_rows * C * 4 + J * 4
+    bound = max(nbytes / HBM_BYTES_PER_S, m * J * C * 2 / FP32_OPS_PER_S) * 1e3
+    print(f"[clip] hashgrid_table_grad -O encode {m} points x {J} columns: max_abs_err {t_err:.3g} "
+          f"({t_err / scale:.3g} of max|d_table|, limit 1e-5), device {ms}, plain {plain_ms}, "
+          f"index_add_ alone {lib_ms}, bound {bound:.5f} ms ({nbytes} B)")
+    del rows_t, weights, cot, got, want, contrib, flat
+
+    # (b) and (c): the CLI on this machine, without CLIP weights or ultralytics
+    cli_scene, cli_ws = clip_cli_scene(work), os.path.join(work, "clip_cli_ws")
+    argv = [cli_scene, "-O", "--workspace", cli_ws, "--rand_pose", "0", "--clip_text", "a sphere",
+            "--iters", str(CLIP_CLI_VIEWS), "--mesh_res", "0", "--ckpt_interval", "10"]
+    reset_counts()
+    said = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(said):
+        (cli,) = main_nerf.main(argv, device=dev)
+    torch.cuda.synchronize()
+    cli_s, cli_launches, said = time.time() - t0, read_counts(), said.getvalue()
+    with open(cli.log_path) as f:
+        warned = f.read().count("no CLIP loss available")
+    sidecar = load_sidecar(cli_scene, "train")
+    print(f"[clip] main_nerf {' '.join(argv[1:])} (no sidecar, no --disable_yolo; ultralytics importable: "
+          f"{yolo_available()}): {cli_s:.2f} s, {cli.global_step} steps, losses "
+          f"{', '.join(f'{x:.4f}' for x in cli.step_losses)}, warnings {warned}, rand_pose now {cli.rand_pose}, "
+          f"sidecar objects {list(sidecar['names'])}, launches {cli_launches}; its lines:")
+    for line in said.splitlines():
+        if line.startswith(("[yolo]", "[main_nerf]", "[WARN]")):
+            print(f"[clip]   {line}")
+    if yolo_available() or said.count("ultralytics is not installed") != 1 or list(sidecar["names"]) != ["background"] \
+            or not sidecar["background__masks"].all():
+        raise AssertionError("[clip] the CLI did not take the missing-ultralytics branch (background-only sidecar)")
+    if warned != 1 or cli.rand_pose != -1 or cli.clip_steps or cli.global_step != CLIP_CLI_VIEWS \
+            or not np.isfinite(cli.step_losses).all():
+        raise AssertionError("[clip] the CLI without CLIP weights did not warn once and train on")
+    if cli_launches["hashgrid_table_grad"] != CLIP_CLI_VIEWS:
+        raise AssertionError(f"[clip] the CLI run launched {cli_launches}")
     return launches
 
 
@@ -3619,7 +3944,6 @@ def main() -> int:
     phase("render reference", phase_reference, params, cfg, bits)
     phase("iterative reference", phase_iterative_reference, trainer)
     phase("train reference", phase_train_reference, trainer, ds)
-    del ds
     uniform_launches = phase("uniform training", phase_uniform_train, work, dev, smi)
     _, o2_launches = phase("second object", phase_second_object, work, dev)
     composed, per_sample, root, scene = phase("composition", phase_composition, work, dev, smi)
@@ -3640,7 +3964,8 @@ def main() -> int:
     phase("dnerf variants", phase_dnerf_variants, work, dev, smi)
     viewer_launches = phase("viewer", phase_viewer, work, dev, smi)
     phase("lpips", phase_lpips, work, dev, smi)
-    no_preload_launches = phase("no-preload", phase_no_preload, work, dev, smi)
+    no_preload_launches = phase("no-preload", phase_no_preload, work, dev, smi, ds)
+    clip_launches = phase("clip", phase_clip, work, dev, smi, ds)
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
     line = [{**k, "launches": launches[k["name"]], "launches_compose": composed["combined"][k["name"]],
@@ -3649,7 +3974,8 @@ def main() -> int:
              "launches_baked_edit": baked_runs["editable"][k["name"]],
              "launches_voxel": voxel_launches[k["name"]], "launches_uniform": uniform_launches[k["name"]],
              "launches_o2": o2_launches[k["name"]], "launches_dnerf": dnerf_launches[k["name"]],
-             "launches_viewer": viewer_launches[k["name"]], "launches_no_preload": no_preload_launches[k["name"]]}
+             "launches_viewer": viewer_launches[k["name"]], "launches_no_preload": no_preload_launches[k["name"]],
+             "launches_clip": clip_launches[k["name"]]}
             for k in kernels]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))

@@ -55,6 +55,7 @@ IGNORED = {
     "grid_featdim": "the D-NeRF field has 2 channels a level, as JAX's dnerf_config()",
     "grid_int8": "the port's table gradient is exact",
     "preload": "the port preloads every split to the device",
+    "rand_pose": "the D-NeRF trainer has no CLIP rand-pose branch; JAX's main_dnerf does not read it",
 }
 
 
@@ -67,11 +68,6 @@ def warn_ignored(opt: Options) -> None:
         value = getattr(opt, name)
         if value != getattr(defaults, name) or (name == "eval_renderer" and value != "oneshot"):
             print(f"[main_dnerf] --{name} {value} is ignored: {why}")
-
-
-def rejected(opt: Options) -> None:
-    if opt.rand_pose >= 0:
-        raise NotImplementedError("not ported yet: rand_pose >= 0 (CLIP guidance)")
 
 
 def build_trainer(opt: Options, cfg, device, use_checkpoint=None):
@@ -95,7 +91,6 @@ def main(argv=None, device=None):
 
     opt = parse_options(argv)
     device = resolve_device(device)
-    rejected(opt)
     warn_ignored(opt)
     os.makedirs(opt.workspace, exist_ok=True)
     cfg = opt.dnerf_config()

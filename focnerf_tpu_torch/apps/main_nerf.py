@@ -23,7 +23,11 @@ pipeline does; ``-O`` preloads. Without ``-O`` the trainer samples
 uniformly (``--num_steps``, plus ``--upsample_steps`` importance samples);
 ``-O2`` adds the coarse-to-fine stages (``--c2f``) and the alternating
 level-subset backward (``--grad_level_phases``) to ``-O``; ``--error_map``,
-``--patch_size`` and ``--tv_weight`` work on either path.
+``--patch_size`` and ``--tv_weight`` work on either path. ``--rand_pose N``
+with ``--clip_text`` makes every (N+1)-th step a GT-free CLIP step, which
+needs transformers' CLIP weights in the local cache; without them the
+trainer says so once and trains on (train/trainer.py). As in JAX, the CLIP
+step passes no object feature, so it needs ``--n_chunks 0``.
 
 Training evaluates the val split with ``--eval_renderer`` (default ``iter``,
 the iterative worklist renderer; ``iter_dev`` its drain; ``oneshot`` the
@@ -61,6 +65,25 @@ def mask_details_for(sidecar, obj: str):
     }
 
 
+def trainer_options(opt: Options) -> dict:
+    """The training ``Trainer``'s keyword arguments from the options."""
+    return dict(
+        lr=opt.lr, lr_net=opt.lr_net or None, lr_warmup=opt.lr_warmup,
+        alpha_loss=opt.alpha_loss, grad_clip=opt.grad_clip,
+        grad_level_phases=opt.grad_level_phases, c2f=opt.c2f, iters=opt.iters,
+        num_steps=opt.num_steps, upsample_steps=opt.upsample_steps,
+        max_ray_batch=opt.max_ray_batch, use_occupancy=opt.cuda_ray, dt_gamma=opt.dt_gamma,
+        max_steps=opt.max_steps, train_slab=opt.train_slab, bucket_slabs=opt.bucket_slabs,
+        skip_march=opt.skip_march, density_thresh=opt.density_thresh,
+        update_extra_interval=opt.update_extra_interval,
+        steps_per_dispatch=opt.steps_per_dispatch, min_near=opt.min_near,
+        color_space=opt.color_space, tv_weight=opt.tv_weight, use_checkpoint=opt.ckpt,
+        seed=opt.seed, rand_pose=opt.rand_pose, clip_text=opt.clip_text, eval_interval=opt.eval_interval,
+        ckpt_interval=opt.ckpt_interval, eval_save_images=opt.eval_save_images,
+        eval_renderer=opt.eval_renderer,
+    )
+
+
 def train_one_object(opt: Options, obj: str, sidecar_train, sidecar_val, device):
     from focnerf_tpu_torch.data.feats import save_obj_feats
     from focnerf_tpu_torch.data.provider import NeRFDataset
@@ -81,22 +104,8 @@ def train_one_object(opt: Options, obj: str, sidecar_train, sidecar_val, device)
     if train_ds.obj_feats is not None:  # for composition/editing (ref :256-261)
         save_obj_feats(os.path.join(opt.workspace, "obj_feats", f"{obj}.npz"),
                        train_ds.obj_feats, train_ds.poses)
-    trainer = Trainer(
-        "ngp", opt.nerf_config(), workspace=f"{opt.workspace}_{obj}",
-        lr=opt.lr, lr_net=opt.lr_net or None, lr_warmup=opt.lr_warmup,
-        alpha_loss=opt.alpha_loss, grad_clip=opt.grad_clip,
-        grad_level_phases=opt.grad_level_phases, c2f=opt.c2f, iters=opt.iters,
-        num_steps=opt.num_steps, upsample_steps=opt.upsample_steps,
-        max_ray_batch=opt.max_ray_batch, use_occupancy=opt.cuda_ray, dt_gamma=opt.dt_gamma,
-        max_steps=opt.max_steps, train_slab=opt.train_slab, bucket_slabs=opt.bucket_slabs,
-        skip_march=opt.skip_march, density_thresh=opt.density_thresh,
-        update_extra_interval=opt.update_extra_interval,
-        steps_per_dispatch=opt.steps_per_dispatch, min_near=opt.min_near,
-        color_space=opt.color_space, tv_weight=opt.tv_weight, use_checkpoint=opt.ckpt,
-        seed=opt.seed, rand_pose=opt.rand_pose, eval_interval=opt.eval_interval,
-        ckpt_interval=opt.ckpt_interval, eval_save_images=opt.eval_save_images,
-        eval_renderer=opt.eval_renderer, device=device,
-    )
+    trainer = Trainer("ngp", opt.nerf_config(), workspace=f"{opt.workspace}_{obj}", device=device,
+                      **trainer_options(opt))
     trainer.check_eval_renderer()  # refuse before training, not after it
     steps_per_epoch = max(train_ds.n_views, 1)
     # train the REMAINING iters: a --ckpt latest resume starts at its step

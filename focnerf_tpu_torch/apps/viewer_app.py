@@ -20,7 +20,9 @@ Frames are rendered under ``torch.no_grad()`` (never ``inference_mode``: the
 trainer's tensors go back into autograd) and handed to the server as numpy.
 While training, one lock is held by every train step of the burst thread
 and by every render and action: the port updates parameters and the EMA in
-place, so a render must not read them mid-step.
+place, so a render must not read them mid-step. The lock is handed out in
+the order it is asked for (``_FairLock``), so a waiting render goes before
+the burst's next step.
 
 Usage:
   python -m focnerf_tpu_torch.apps.viewer_app <scene> --workspace ws_background [--test]
@@ -245,6 +247,29 @@ def _baked_volume(opt, params, cfg, ckpt_dir, obj_feat, occ_bits, device):
     return quantize_volume(vol) if opt.bake_quantize else vol
 
 
+class _FairLock:
+    """A lock handed out in the order it was asked for. ``threading.Lock`` is
+    not: the burst thread releases it after a step and asks again at once,
+    and where steps are fast it takes it back before a waiting render wakes,
+    so the view froze for whole bursts."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._next = 0  # the next ticket to hand out
+        self._serving = 0  # the ticket that holds the lock
+
+    def __enter__(self):
+        with self._cond:
+            ticket = self._next
+            self._next += 1
+            self._cond.wait_for(lambda: self._serving == ticket)
+
+    def __exit__(self, *exc):
+        with self._cond:
+            self._serving += 1
+            self._cond.notify_all()
+
+
 def _train_while_viewing(opt, device=None):
     """Build the dataset and a Trainer; returns (render_fn, train_fn, actions)."""
     from focnerf_tpu_torch.apps.main_nerf import detected_objects, mask_details_for
@@ -270,7 +295,7 @@ def _train_while_viewing(opt, device=None):
         obj_feat = torch.as_tensor(train_ds.obj_feats.mean(0), device=device)
     else:
         obj_feat = torch.zeros(trainer.cfg.yolo_feats_dim, device=device) if trainer.cfg.use_objfeat else None
-    lock = threading.Lock()  # every train step, render and action: the state updates in place
+    lock = _FairLock()  # every train step, render and action: the state updates in place
 
     def render_fn(pose, intrinsics, H, W, t, settings=None):
         with lock, torch.no_grad():

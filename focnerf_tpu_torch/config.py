@@ -187,6 +187,8 @@ class Options:
             num_rays=self.num_rays,
             preload_dtype="float16" if self.fp16 else "float32",
             edit_x=self.edit_x,
+            rand_pose=self.rand_pose,
+            radius=self.radius,
             error_map=self.error_map,
             patch_size=self.patch_size,
             # --no-preload: the train split stays on the host as uint8 and

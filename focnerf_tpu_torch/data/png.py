@@ -1,8 +1,8 @@
-"""8-bit PNG read/write with the standard library's zlib and numpy.
+"""PNG read/write with the standard library's zlib and numpy.
 
 The machine with the card has no imageio, PIL or cv2, so the port carries
-its own codec: 8-bit grayscale, gray+alpha, RGB and RGBA, filter types 0-4,
-no interlace. ``encode_png``/``decode_png`` work on bytes in memory (the
+its own codec: grayscale, gray+alpha, RGB and RGBA, filter types 0-4, no
+interlace; it writes 8-bit and reads 8-bit and 16-bit (as uint16). ``encode_png``/``decode_png`` work on bytes in memory (the
 viewer's frames: the only codec it uses, on any machine), ``write_png``/
 ``read_png`` on files. ``read_image``/``write_image`` use imageio when it is
 importable and this codec otherwise.
@@ -88,7 +88,7 @@ def _unfilter(data: np.ndarray, H: int, W: int, C: int) -> np.ndarray:
 
 
 def decode_png(blob: bytes, name: str = "PNG data") -> np.ndarray:
-    """8-bit, non-interlaced PNG bytes -> uint8 [H, W, C] (C = 1..4)."""
+    """8- or 16-bit, non-interlaced PNG bytes -> uint8 or uint16 [H, W, C] (C = 1..4)."""
     if not blob.startswith(_SIGNATURE):
         raise ValueError(f"{name}: not a PNG file")
     pos, idat, header = len(_SIGNATURE), [], None
@@ -106,23 +106,28 @@ def decode_png(blob: bytes, name: str = "PNG data") -> np.ndarray:
     if header is None:
         raise ValueError(f"{name}: no IHDR chunk")
     W, H, depth, color_type, _, _, interlace = header
-    if depth != 8 or color_type not in _CHANNELS or interlace != 0:
+    if depth not in (8, 16) or color_type not in _CHANNELS or interlace != 0:
         raise ValueError(
-            f"{name}: only 8-bit non-interlaced gray/RGB(A) PNGs are supported "
+            f"{name}: only 8- or 16-bit non-interlaced gray/RGB(A) PNGs are supported "
             f"(depth {depth}, colour type {color_type}, interlace {interlace})"
         )
     data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    return _unfilter(data, H, W, _CHANNELS[color_type])
+    C = _CHANNELS[color_type]
+    if depth == 8:
+        return _unfilter(data, H, W, C)
+    raw = _unfilter(data, H, W, 2 * C).reshape(H, W, C, 2).astype(np.uint16)  # filters work on bytes
+    return (raw[..., 0] << 8) | raw[..., 1]  # big-endian samples
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit, non-interlaced PNG file -> uint8 [H, W, C] (C = 1..4)."""
+    """Read a non-interlaced PNG file -> uint8 (uint16 for 16-bit) [H, W, C] (C = 1..4)."""
     with open(path, "rb") as f:
         return decode_png(f.read(), path)
 
 
 def read_image(path: str) -> np.ndarray:
-    """uint8 image array, through imageio when importable, else ``read_png``."""
+    """Image array (uint8, uint16 for a 16-bit PNG), through imageio when
+    importable, else ``read_png``."""
     try:
         import imageio.v2 as imageio
     except ImportError:

@@ -15,8 +15,9 @@ JAX's :267-288, :376-410) the train split stays on the host as a uint8
 [V, H*W, C] stack (``images_host``), the native threaded loader
 (data/native_loader.py) draws each batch's view, indices and pixels there,
 and the rays, mask and object feature are built on the device from them;
-it samples uniformly (no error map, no patches). The rand-pose batches are
-not ported.
+it samples uniformly (no error map, no patches). ``rand_pose_batch`` makes
+the GT-free batch of the CLIP branch: one random pose at ``radius``,
+rendered at 1/s of the image side so it holds about ``num_rays`` rays.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from focnerf_tpu_torch.core.camera import nerf_matrix_to_ngp
+from focnerf_tpu_torch.core.camera import nerf_matrix_to_ngp, rand_poses
 from focnerf_tpu_torch.core.rays import ERROR_MAP_RES, get_rays, index_draws, sample_ray_indices
 from focnerf_tpu_torch.data.png import read_image
 
@@ -43,6 +44,8 @@ class DatasetOptions:
     num_rays: int = 4096
     preload_dtype: str = "float32"  # or "float16" (-O)
     edit_x: float = 0.0  # camera x-shift for editing previews
+    rand_pose: int = -1  # <0: never, 0: always, >0: every Nth batch
+    radius: float = 5.0  # rand-pose orbit radius
     error_map: bool = False  # error-map importance sampling (train split)
     patch_size: int = 1  # > 1: sample patch_size x patch_size patches
     # keep the train split on the host as uint8 and draw batches with the
@@ -322,6 +325,17 @@ class NeRFDataset:
         if self._native_loader is not None:
             self._native_loader.close()
             self._native_loader = None
+
+    def rand_pose_batch(self, rng_np: np.random.Generator) -> dict:
+        """GT-free random-pose batch for CLIP-guided training (provider.py:
+        404-418): one pose from ``rng_np`` at ``radius``, the intrinsics over
+        s = int(sqrt(H * W / num_rays)) -> dict(rays_o, rays_d [H/s * W/s,
+        3], H, W)."""
+        s = int(np.sqrt(self.H * self.W / self.opt.num_rays))
+        rH, rW = self.H // s, self.W // s
+        pose = rand_poses(rng_np, 1, radius=self.opt.radius)[0]
+        rays = get_rays(pose, self.intrinsics / s, rH, rW, device=self.device)
+        return {"rays_o": rays["rays_o"], "rays_d": rays["rays_d"], "H": rH, "W": rW}
 
     def eval_view(self, view: int) -> dict:
         """Pose, size, GT pixels and object feature of one view."""

@@ -456,6 +456,7 @@ def table_grad_plain(rows, weights, g, col_level, n_rows: int, C: int) -> torch.
 def _table_grad_launch(rows, weights, g, col_level, n_rows: int, C: int):
     """Checks the operands, then launches the kernel."""
     from focnerf_tpu_torch.ops._build import load_library
+    from focnerf_tpu_torch.utils.flops import note_kernel_bytes
 
     n, J = rows.shape
     for name, t, dtype, shape in (
@@ -485,6 +486,7 @@ def _table_grad_launch(rows, weights, g, col_level, n_rows: int, C: int):
     if err != 0:
         raise RuntimeError(f"table-gradient kernel launch failed: cudaError {err}")
     hashgrid_table_grad.launches += 1
+    note_kernel_bytes(3.0 * n * J * C * 4)  # the scatter's read-modify-write, for utils/flops
     return d_table
 
 

@@ -1,9 +1,13 @@
-"""The train steps: uniform sampling and occupancy marching.
+"""The train steps: uniform sampling, occupancy marching and CLIP guidance.
 
-Twin of focnerf_tpu/train/steps.py (nerf/utils.py:818-905):
+Twin of focnerf_tpu/train/steps.py (nerf/utils.py:796-905):
 ``train_step`` is ``make_train_step`` (uniform samples with importance
-upsampling, the reference's training without --cuda_ray) and
-``train_step_occupancy`` is ``make_train_step_occupancy`` (--cuda_ray). Both:
+upsampling, the reference's training without --cuda_ray),
+``train_step_occupancy`` is ``make_train_step_occupancy`` (--cuda_ray) and
+``make_clip_step`` is ``make_clip_step`` (the GT-free rand-pose step: an
+H x W image from a random pose through ``render_rays``, white background,
+loss ``clip_weight * clip_loss(image)``, then the same Adam and EMA). The
+first two:
 
   - RGBA ground truth is composited onto a per-pixel random background;
   - loss = per-ray mean-channel MSE, plus ``alpha_weight`` * MSE of the
@@ -22,7 +26,8 @@ torch cannot reproduce the JAX PRNG, so a step takes its draws as tensors;
 jitter ``noise`` [N] or the sample jitter ``z_noise`` [N, num_steps] and
 quantiles ``pdf_u`` [N, upsample_steps], the stochastic-corner uniforms
 ``u`` [points, n_stoch, K, 3] of ``cfg.encode_spec`` (a coarse-to-fine
-stage's truncated spec), and with TV the points ``tv_x`` [8192, 3].
+stage's truncated spec), and with TV the points ``tv_x`` [8192, 3];
+``clip_step_draws`` the CLIP step's ``z_noise`` and ``u``.
 """
 
 from __future__ import annotations
@@ -77,6 +82,15 @@ def uniform_step_draws(generator: torch.Generator, cfg: NeRFConfig, n_rays: int,
     if tv:
         draws["tv_x"] = torch.rand((TV_POINTS, 3), **kw)
     return draws
+
+
+def clip_step_draws(generator: torch.Generator, cfg: NeRFConfig, n_rays: int, num_steps: int, device) -> Dict:
+    """The random draws of one CLIP step (the sample jitter and the corner
+    draws of ``render_rays``), in the JAX step's shapes."""
+    return {
+        "z_noise": torch.rand((n_rays, num_steps), generator=generator, device=device),
+        "u": _corner_draws(generator, cfg, n_rays * num_steps, device),
+    }
 
 
 def _tv_term(cfg: NeRFConfig, params, draws: Dict, tv_weight: float):
@@ -216,3 +230,34 @@ def train_step_occupancy(
         "mean_samples": aux["n_samples"].float().mean(),
         "march_iters": aux["march_iters"],
     }
+
+
+def clip_step_loss(params, cfg: NeRFConfig, rays_o, rays_d, draws: Dict, clip_loss, *, H: int, W: int,
+                   num_steps: int = 128, min_near: float = 0.2, clip_weight: float = 1.0):
+    """``clip_weight * clip_loss(image)`` of the H x W render of rays [H * W,
+    3] (jittered by ``draws``, white background), differentiable in
+    ``params``. Like JAX's, it passes no object feature: a config with
+    ``use_objfeat`` raises in ``render_rays``."""
+    out = render_rays(
+        params, cfg, rays_o, rays_d, num_steps=num_steps, bg_color=1.0, min_near=min_near,
+        perturb=True, z_noise=draws["z_noise"], u=draws.get("u"),
+    )
+    return clip_weight * clip_loss(out["image"].reshape(H, W, 3))
+
+
+def make_clip_step(cfg: NeRFConfig, clip_loss, *, H: int, W: int, num_steps: int = 128,
+                   min_near: float = 0.2, clip_weight: float = 1.0):
+    """The CLIP-guided GT-free step (nerf/utils.py:796-838): ``step(state,
+    rays_o, rays_d, draws)`` -> metrics {"loss"}, ``state`` updated in place
+    (Adam, LR schedule and EMA, as every step). ``clip_loss`` maps an image
+    [H, W, 3] in [0, 1] to a differentiable scalar
+    (``clip_guidance.make_torch_clip_loss``, or any stand-in)."""
+
+    def step(state: TrainState, rays_o, rays_d, draws: Dict) -> Dict:
+        loss = clip_step_loss(state.params, cfg, rays_o, rays_d, draws, clip_loss, H=H, W=W,
+                              num_steps=num_steps, min_near=min_near, clip_weight=clip_weight)
+        loss.backward()
+        state.apply_gradients()
+        return {"loss": loss.detach()}
+
+    return step

@@ -21,9 +21,21 @@ A subclass (the D-NeRF trainer) replaces these hooks, as the JAX
 and ``_mesh_density``.
 
 Every draw comes from one ``torch.Generator`` on the training device,
-seeded by ``seed``. The CLIP rand-pose branch is not ported and is refused
-when asked for. ``steps_per_dispatch`` > 1 runs one step per dispatch (its
+seeded by ``seed``; the rand poses from a numpy generator seeded by ``seed
++ 1``, as JAX's. ``steps_per_dispatch`` > 1 runs one step per dispatch (its
 fused form gives the same steps).
+
+The CLIP rand-pose branch (:477-522, the reference's nerf/utils.py:796-838):
+with ``rand_pose`` 0 every step, with ``rand_pose`` N > 0 the steps with
+``global_step % (N + 1) == N``, are GT-free CLIP steps
+(``steps.make_clip_step`` on ``rand_pose_batch``, ``min(num_steps, 128)``
+samples a ray, the full config). A CLIP step comes before the occupancy
+update and counts in ``global_step``, so the refreshes fall where JAX's
+do. The loss is ``clip_loss_fn``, else ``make_torch_clip_loss(clip_text)``;
+when neither gives one the trainer says so once, sets ``rand_pose`` to -1
+and trains on, as JAX's does. JAX runs the branch from ``train_step_once``
+only (its ``train`` never reaches it); the port runs it from both, so
+``main_nerf --rand_pose`` does what it says.
 """
 
 from __future__ import annotations
@@ -52,6 +64,8 @@ from focnerf_tpu_torch.train.checkpoints import BestCheckpoint, CheckpointManage
 from focnerf_tpu_torch.train.meters import LPIPSMeter, PSNRMeter, SSIMMeter
 from focnerf_tpu_torch.train.state import TrainState
 from focnerf_tpu_torch.train.steps import (
+    clip_step_draws,
+    make_clip_step,
     step_draws,
     train_step,
     train_step_occupancy,
@@ -101,10 +115,10 @@ class Trainer:
         use_checkpoint: str = "latest",
         seed: int = 0,
         rand_pose: int = -1,
+        clip_text: str = "",
+        clip_loss_fn=None,
         device=None,
     ):
-        if rand_pose >= 0:
-            raise NotImplementedError("not ported yet: rand_pose >= 0 (CLIP guidance)")
         self.grad_level_phases = max(0, grad_level_phases)
         if self.grad_level_phases > 1 and not use_occupancy:
             raise ValueError("grad_level_phases > 1 requires the occupancy path; drop it or pass "
@@ -161,6 +175,13 @@ class Trainer:
         self.last_eval_results = None
         self.step_losses: List[float] = []  # every step's loss, read once per epoch
         self.march_iters: List[int] = []  # every step's skip-walk iterations
+        self.rand_pose = rand_pose
+        self._clip_text = clip_text
+        self._clip_loss = clip_loss_fn
+        self._clip_step_fn = None
+        self._clip_warned = False
+        self.clip_steps: List[int] = []  # the global steps that were CLIP steps
+        self._np_rng = np.random.default_rng(seed + 1)
 
         os.makedirs(workspace, exist_ok=True)
         self.log_path = os.path.join(workspace, f"log_{name}.txt")
@@ -294,9 +315,41 @@ class Trainer:
         levels = tuple(lvl for lvl in range(active or cfg.num_levels) if lvl % P == phase)
         return dataclasses.replace(cfg, grad_levels=levels), (phase, active)
 
+    def _maybe_clip_step(self, train_dataset):
+        """A CLIP rand-pose step when one is scheduled -> its metrics, else None."""
+        if self.rand_pose < 0:
+            return None
+        if self.rand_pose > 0 and self.global_step % (self.rand_pose + 1) != self.rand_pose:
+            return None
+        if self._clip_loss is None:
+            if self._clip_text:
+                from focnerf_tpu_torch.train.clip_guidance import make_torch_clip_loss
+
+                self._clip_loss = make_torch_clip_loss(self._clip_text, device=self.device)
+            if self._clip_loss is None:
+                if not self._clip_warned:
+                    self.log("[WARN] rand_pose >= 0 but no CLIP loss available (weights not cached / no "
+                             "clip_text); skipping the rand-pose branch")
+                    self._clip_warned = True
+                self.rand_pose = -1
+                return None
+        batch = train_dataset.rand_pose_batch(self._np_rng)
+        num_steps = min(self.num_steps, 128)
+        if self._clip_step_fn is None:
+            self._clip_step_fn = make_clip_step(self.cfg, self._clip_loss, H=int(batch["H"]), W=int(batch["W"]),
+                                                num_steps=num_steps, min_near=self.min_near)
+        draws = clip_step_draws(self.generator, self.cfg, batch["rays_o"].shape[0], num_steps, self.device)
+        metrics = self._clip_step_fn(self.state, batch["rays_o"], batch["rays_d"], draws)
+        self.clip_steps.append(self.global_step)
+        self.global_step += 1
+        return metrics
+
     def _train_step(self, train_dataset):
-        """One optimizer step -> (its batch, its metrics, the loss still on
-        the device)."""
+        """One optimizer step -> (its batch, None for a CLIP step; its
+        metrics, the loss still on the device)."""
+        metrics = self._maybe_clip_step(train_dataset)
+        if metrics is not None:
+            return None, metrics
         self._maybe_update_occupancy()
         batch = train_dataset.train_batch(self.generator)
         metrics = self._step(batch)
@@ -358,7 +411,8 @@ class Trainer:
                 losses.append(metrics["loss"])
                 if "march_iters" in metrics:
                     self.march_iters.append(metrics["march_iters"])
-                if getattr(train_dataset, "error_map", None) is not None and "inds_coarse" in batch:
+                if batch is not None and getattr(train_dataset, "error_map", None) is not None \
+                        and "inds_coarse" in batch:
                     self._error_map_step(train_dataset, batch, metrics)
             epoch_losses = torch.stack(losses).tolist()  # one sync per epoch
             self.step_losses += epoch_losses

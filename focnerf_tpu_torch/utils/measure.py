@@ -4,6 +4,8 @@
   - ``busy_ms``: the time the device was busy in such a trace (the union of
     its events' intervals: overlapping events count once);
   - ``device_ms``: a function's device time per call, and its CUDA-event span;
+  - ``counted_device_ms``: the same device time, with the events the trace
+    recorded against the events it should hold;
   - ``seeded_model``: the full-width serving model from a seed, with a
     density grid equal to the field's sigma at every cell centre.
 """
@@ -75,6 +77,29 @@ def device_ms(fn, iters: int = 50):
     if ms <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
     return ms / iters, span_ms
+
+
+def counted_device_ms(fn, iters: int = 50):
+    """(device ms per call, events recorded, events expected) of ``fn``:
+    ``device_ms``'s sum over ``iters`` calls, and one profiled call's device
+    events times ``iters`` as the count that trace must hold. A trace that
+    holds fewer lost events, and its time does not stand for the calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_call = len(_device(prof))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = _device(prof)
+    ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    return ms, len(events), per_call * iters
 
 
 def seeded_model(opt, device, seed: int = 0):

@@ -68,7 +68,9 @@ finally:
     srv.server_close()
     th.join(10)
 assert served.shape == (4, 4, 3) and (served == 127).all(), served
-new = ("viewer.server", "apps.viewer_app", "train.lpips_npz", "data.native_loader")
+new = ("viewer.server", "apps.viewer_app", "train.lpips_npz", "data.native_loader", "train.clip_guidance",
+       "data.yolo_sidecar", "train.loss", "ops.encoding", "utils.dilation", "utils.scripts", "utils.debug",
+       "utils.profiling", "utils.flops")
 print("imported:", all("focnerf_tpu_torch." + n in names for n in new))
 def blocked(n):
     try:

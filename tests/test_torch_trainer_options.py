@@ -1,8 +1,8 @@
 """Trainer options the port refuses or ignores, the eval meters, and the
 profiler's busy time, on the CPU:
 
-  - the CLIP rand-pose branch is refused by name (not silently dropped), and
-    the sampling options reach the dataset;
+  - ``--rand_pose`` without CLIP weights trains on after one warning, as
+    JAX's trainer does, and the sampling options reach the dataset;
   - ``evaluate`` reports PSNR, SSIM and LPIPS as JAX's does;
   - ``--grid_int8`` prints why it is ignored (``--no-preload`` is honoured:
     the host pipeline, tests/test_torch_native_loader.py);
@@ -41,13 +41,18 @@ def scene(tmp_path_factory):
     return make_synthetic_scene(str(tmp_path_factory.mktemp("opts") / "scene"), n_train=2, n_val=1)
 
 
-def test_rand_pose_is_refused(scene, tmp_path):
-    opt = parse_options([scene, "-O", "--error_map", "--patch_size", "4"])
+def test_rand_pose_is_refused(scene, tmp_path, capsys, monkeypatch):
+    """No longer refused: with no CLIP model to load (transformers is made
+    unimportable here, as on the card's machine) ``--rand_pose 0
+    --clip_text`` warns once and trains its ordinary steps."""
+    opt = parse_options([scene, "-O", "--error_map", "--patch_size", "4", "--rand_pose", "3", "--radius", "2"])
     ds = opt.dataset_options()
-    assert (ds.error_map, ds.patch_size) == (True, 4)
-    with pytest.raises(NotImplementedError, match="rand_pose"):
-        main_nerf.main([scene, "-O", "--workspace", str(tmp_path / "ws")] + TINY + ["--rand_pose", "0"],
-                       device="cpu")
+    assert (ds.error_map, ds.patch_size, ds.rand_pose, ds.radius) == (True, 4, 3, 2.0)
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    (tr,) = main_nerf.main([scene, "-O", "--workspace", str(tmp_path / "ws")] + TINY
+                           + ["--rand_pose", "0", "--clip_text", "a sphere", "--mesh_res", "0"], device="cpu")
+    assert tr.rand_pose == -1 and tr.clip_steps == [] and tr.global_step == len(tr.step_losses) == 2  # one epoch
+    assert capsys.readouterr().out.count("no CLIP loss available") == 1
 
 
 def test_evaluate_reports_the_jax_metrics(scene, tmp_path):

@@ -541,6 +541,28 @@ def test_train_while_viewing_under_one_lock(tmp_path, monkeypatch):
         assert all(r1 <= s0 or s1 <= r0 for _, s0, s1 in steps), "a render overlapped a train step"
 
 
+def test_fair_lock_serves_a_waiting_render_before_the_next_step():
+    """The train-while-viewing lock goes to the thread that asked first: a
+    render waiting while a step holds it runs before the step that the
+    burst thread asks for right after releasing it."""
+    lock, order = tva._FairLock(), []
+
+    def render():
+        with lock:
+            order.append("render")
+
+    with lock:
+        t = threading.Thread(target=render)
+        t.start()
+        deadline = time.time() + 30
+        while lock._next < 2 and time.time() < deadline:  # the render holds a ticket
+            time.sleep(0.001)
+    with lock:
+        order.append("step")
+    t.join(30)
+    assert order == ["render", "step"]
+
+
 def test_main_falls_back_to_view_only(scene, hash_workspaces, tmp_path, monkeypatch, capsys):
     """Without --test and without a trainable scene, ``main`` says so and
     serves the workspace view-only, as JAX's does; ``VIEWER_PORT`` reaches
