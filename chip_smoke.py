@@ -45,9 +45,9 @@ non-zero exit code and no result line:
      exist; then ``--test -O`` serves from the trained checkpoint (a
      trained, sparse grid); the val views are evaluated with ``iter`` (1;
      the training's own eval renders all 4 with it), ``iter_dev`` (1) and
-     ``oneshot`` (1) (s/view, rounds, launches,
+     ``oneshot`` (the centre 400x400 of 1) (s/view, rounds, launches,
      PSNR: the two iterative renders must agree within 1e-4 mean per view
-     and neither may fall 0.5 dB below ``oneshot`` on its view); 3 more steps
+     and neither may fall 0.5 dB below ``oneshot`` on its pixels); 3 more steps
      are profiled: stage times, the device's busy share and top kernels;
      nvidia-smi samples the SM clock beside each timed training window and
      the table-gradient timing; on one train step at each of the slabs 128,
@@ -112,11 +112,11 @@ non-zero exit code and no result line:
      default bf16 step's loss within 1e-2;
  14. voxel: ``main_voxel`` through its entry point, dense 256^3 on phase 5's
      sphere scene (300 steps on the c2f ladder 64, 128, 256, ri 512, remat
-     on) and VM rank 16 at 128^3 with ``--bake_quantize`` (each: the train
+     on) and VM rank 16 at 128^3 with ``--bake_quantize`` (150 steps) (each: the train
      loss must halve and the val PSNR reach 20 dB; the baked npz and the
      mesh must exist), 20 steps at 256^3 with remat on and off (ms/step,
      peak memory), then ``--voxel_dynamic`` and ``--voxel_kplanes 8`` at
-     128^3 on the dynamic hard scene (400x400, GT at 128^3, 100 steps; a
+     128^3 on the dynamic hard scene (400x400, GT at 128^3, 50 steps; a
      finite val PSNR): ms/step, supervised rays/s, peak memory, kernel
      launches (none: the voxel path runs neither kernel);
  15. voxel profile: one dense 256^3 train step by stage (relayout, hat
@@ -193,6 +193,19 @@ non-zero exit code and no result line:
      has neither ultralytics nor transformers, so it writes the
      background-only sidecar, says once that no CLIP loss is available and
      trains its 4 steps.
+ 24. parallel (``[parallel]``, ``parallel/``): the -O data-parallel
+     occupancy step at full width on world size 1 over NCCL in this process,
+     then 2 ranks on the one card over gloo, each a subprocess with its own
+     timeout (``parallel_rank``): 10 DP steps of phase 5's 4096-ray global
+     batches (the first step's loss within 1e-4 and table update within 1e-2
+     rel L2 of the world-1 step, every rank's params bit for bit equal
+     after the 10, each kernel launched), ``compose_rays_sharded`` at K = 2
+     against ``compose_rays`` (mean 1e-4), one slice-parallel dense step at
+     256^3 against one device (loss and field update 1e-2), ``main_voxel
+     --voxel_sp --voxel_dp 2`` in the ranks' group; then ``torchrun
+     --nproc_per_node 2 -m focnerf_tpu_torch.apps.main_voxel --voxel_sp`` at
+     256^3 for 24 steps (rank 0 alone writes and prints ``[spvoxel]``). The
+     voxel runs load phase 5's first 8 train views and first val view.
 
 Every phase prints ``[phase-start] <name>`` before it starts (so a failure
 names its phase) and its seconds after (``[phase] <name>: s``).
@@ -207,7 +220,8 @@ voxel runs (``launches_voxel``), in the uniform training run
 (``launches_o2``), in phase 17's D-NeRF training run (``launches_dnerf``), in
 phase 20's train-while-viewing run (``launches_viewer``), in phase 22's
 ``--no-preload`` run (``launches_no_preload``) and in phase 23's 20 steps
-with CLIP steps (``launches_clip``).
+with CLIP steps (``launches_clip``) and, summed over [parallel]'s two gloo
+ranks, in their 10 DP steps and sharded composition (``launches_parallel``).
 """
 
 from __future__ import annotations
@@ -249,6 +263,10 @@ UNIFORM_ITERS, UNIFORM_STEPS, UNIFORM_TV = 150, (128, 64), 1e-4
 # from 4 (iter_dev: then from 2; iter: as the training's own eval renders
 # all 4 with it) to keep the smoke within its time limit
 EVAL_VIEWS = {"iter": 1, "iter_dev": 1, "oneshot": 1}
+# oneshot renders the centre ONESHOT_CROP^2 of its view (the whole 800x800
+# took ~29 s; cut to pay for [parallel]); the iterative renders are held
+# to it on the same pixels
+ONESHOT_CROP = 400
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # the card's bf16 shear-warp against the CPU's fp32 render of the same volume
@@ -1341,19 +1359,25 @@ def phase_eval_renderers(trainer, ds):
     """The trained model's val views through each eval renderer (the EMA
     params, as ``evaluate``): s/view, rounds per view, composite_rays_resume
     launches and val PSNR of each, ``iter`` on the first EVAL_VIEWS["iter"], ``iter_dev`` on
-    the first EVAL_VIEWS["iter_dev"] and ``oneshot`` (~25-36 s a view) on
-    the first EVAL_VIEWS["oneshot"]. ``iter`` and ``iter_dev`` run the same
-    per-ray rounds (only the batch shapes of the bf16 MLP products differ):
-    they must agree within 1e-4 mean absolute per view, and on the views
-    ``oneshot`` renders neither may fall more than 0.5 dB below it."""
+    the first EVAL_VIEWS["iter_dev"] and ``oneshot`` on the centre
+    ONESHOT_CROP^2 of the first EVAL_VIEWS["oneshot"] (~25-36 s a whole
+    view). ``iter`` and ``iter_dev`` run the same per-ray rounds (only the
+    batch shapes of the bf16 MLP products differ): they must agree within
+    1e-4 mean absolute per view, and on the pixels ``oneshot`` renders
+    neither may fall more than 0.5 dB below it."""
     import numpy as np
     import torch
 
     from focnerf_tpu_torch.render.iterative import render_rays_iterative
     from focnerf_tpu_torch.train.meters import LPIPSMeter, psnr
 
+    from types import SimpleNamespace
+
     params, kept = trainer.state.ema_params, trainer.eval_renderer
     images, rows = {}, {}
+    c, y0, x0 = ONESHOT_CROP, (ds.H - ONESHOT_CROP) // 2, (ds.W - ONESHOT_CROP) // 2
+    fx, fy, cx, cy = (float(v) for v in np.asarray(ds.intrinsics).reshape(-1))
+    crop = SimpleNamespace(intrinsics=np.asarray([fx, fy, cx - x0, cy - y0], np.float32), H=c, W=c)
     for renderer in ("iter", "iter_dev", "oneshot"):
         trainer.eval_renderer = renderer
         kw = trainer._render_kwargs()
@@ -1365,17 +1389,20 @@ def phase_eval_renderers(trainer, ds):
             view = ds.eval_view(v)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            img, _ = trainer._render_view(params, view, ds, kw)
+            img, _ = trainer._render_view(params, view, crop if renderer == "oneshot" else ds, kw)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
             gt = view["pixels"].reshape(ds.H, ds.W, -1)
             if gt.shape[-1] == 4:  # as evaluate: RGBA on white
                 gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+            if renderer == "oneshot":
+                gt = gt[y0:y0 + c, x0:x0 + c]
             psnrs.append(float(psnr(torch.clamp(img, 0.0, 1.0), gt)))
             images[renderer].append(img)
         launches, rounds = read_counts(), render_rays_iterative.rounds
         rows[renderer] = psnrs
-        print(f"[eval] {renderer}: {n_views} val views of {ds.W}x{ds.H}, s/view {np.mean(seconds):.3f} "
+        size = f"{c}x{c} (the centre of {ds.W}x{ds.H})" if renderer == "oneshot" else f"{ds.W}x{ds.H}"
+        print(f"[eval] {renderer}: {n_views} val views of {size}, s/view {np.mean(seconds):.3f} "
               f"(views {', '.join(f'{x:.3f}' for x in seconds)}), rounds/view {rounds / n_views:.1f}, "
               f"composite_rays_resume launches {launches['composite_rays_resume']}, val PSNR "
               f"{np.mean(psnrs):.3f} dB (views {', '.join(f'{x:.3f}' for x in psnrs)})")
@@ -1399,9 +1426,16 @@ def phase_eval_renderers(trainer, ds):
         raise AssertionError(f"iter and iter_dev renders differ: {diffs}")
     shared = len(rows["oneshot"])
     for renderer in ("iter", "iter_dev"):
-        if not np.mean(rows[renderer][:shared]) >= np.mean(rows["oneshot"]) - 0.5:
-            raise AssertionError(f"{renderer} val PSNR {rows[renderer][:shared]} more than 0.5 dB below "
-                                 f"oneshot's {rows['oneshot']} on the same views")
+        on_crop = []
+        for v in range(shared):
+            gt = ds.eval_view(v)["pixels"].reshape(ds.H, ds.W, -1)[y0:y0 + c, x0:x0 + c]
+            gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:]) if gt.shape[-1] == 4 else gt
+            on_crop.append(float(psnr(torch.clamp(images[renderer][v][y0:y0 + c, x0:x0 + c], 0.0, 1.0), gt)))
+        print(f"[eval] {renderer} on oneshot's {c}x{c} pixels: PSNR {', '.join(f'{x:.3f}' for x in on_crop)} dB "
+              f"(oneshot {', '.join(f'{x:.3f}' for x in rows['oneshot'])})")
+        if not np.mean(on_crop) >= np.mean(rows["oneshot"]) - 0.5:
+            raise AssertionError(f"{renderer} val PSNR {on_crop} more than 0.5 dB below oneshot's "
+                                 f"{rows['oneshot']} on the same pixels")
 
 
 def phase_iterative_reference(trainer):
@@ -2280,7 +2314,12 @@ def phase_procedural(work: str, dev, smi: str):
         raise AssertionError(f"procedural val PNG {png.shape} off the rendered frame by {err}")
 
 
-VOXEL_ITERS, DYN_ITERS = 300, 100  # PARITY.md:25's budget; the dynamic families' smoke depth (cut from 200)
+# PARITY.md:25's budget; the dynamic families' smoke depth (cut from 200,
+# then from 100 to pay for [parallel]: their gate is a finite val PSNR)
+VOXEL_ITERS, DYN_ITERS = 300, 50
+# the VM run's steps (cut from VOXEL_ITERS to pay for [parallel]: at 300 its
+# loss fell 50x and its val PSNR read 27.78 dB, against gates of 2x and 20 dB)
+VM_ITERS = 150
 VOXEL_RES, VM_RES = 256, 128  # the dense field at the default --bake_res; VM (and dynamic) at bench.py's 128^3
 DENSE_C2F = 3  # the dense run's c2f stages (64, 128, 256)
 DYN_RES, DYN_GT_RES = 400, 128  # harddyn_400_128 (tools/parity.py, --res 400 --views 30)
@@ -2357,7 +2396,7 @@ def phase_voxel(work: str, dev, smi: str) -> dict:
             (f"dense {VOXEL_RES}^3 (--voxel_c2f {DENSE_C2F}: {', '.join(str(r) for r, _ in ladder)})", "dense",
              ["--bake_res", str(VOXEL_RES), "--voxel_c2f", str(DENSE_C2F)], ladder[-1][1]),
             (f"VM rank 16 at {VM_RES}^3, --bake_quantize", "vm",
-             ["--bake_res", str(VM_RES), "--voxel_vm", "16", "--bake_quantize"], 0)):
+             ["--bake_res", str(VM_RES), "--voxel_vm", "16", "--bake_quantize", "--iters", str(VM_ITERS)], 0)):
         ws = os.path.join(work, f"voxel_{name}")
         info, launches, first, last = run_voxel_cli(tag, [scene, "--workspace", ws] + common + extra, dev, smi,
                                                     final)
@@ -3903,6 +3942,371 @@ def phase_clip(work: str, dev, smi: str, ds):
     return launches
 
 
+PARALLEL_RANKS, PARALLEL_STEPS = 2, 10  # [parallel]: gloo ranks on the one card; DP steps of phase 5's batches
+PARALLEL_RANK_TIMEOUT = 240  # s each rank subprocess (and the torchrun run) may take
+PARALLEL_VIEWS = 8  # train views of the voxel CLI runs (phase 5's first 8; val: its first)
+PARALLEL_SP_ITERS, PARALLEL_DPSP_ITERS = 24, 4  # main_voxel --voxel_sp under torchrun; --voxel_sp --voxel_dp 2
+PARALLEL_LOSS_REL, PARALLEL_TABLE_REL = 1e-4, 1e-2  # DP against world 1: PERF.md §2's hash gates
+PARALLEL_COMPOSE_MEAN = 1e-4  # compose_rays_sharded against compose_rays, mean absolute
+PARALLEL_VOXEL_REL = 1e-2  # the SP step against one device: PERF.md §2's bf16 voxel gate
+
+
+def _parallel_draws(cfg, n_rays: int, slab: int, step: int, dev):
+    """Step ``step``'s draws of the global batch: the same on every rank
+    and in the world-1 run (a seeded generator on the device)."""
+    import torch
+
+    from focnerf_tpu_torch.train.steps import step_draws
+
+    return step_draws(torch.Generator(device=dev).manual_seed(1000 + step), cfg, n_rays, slab, dev)
+
+
+def parallel_scene(work: str) -> str:
+    """Phase 5's training scene cut to its first PARALLEL_VIEWS train views
+    and first val view (images linked): what the voxel CLI runs of
+    [parallel] load on every rank."""
+    src, scene = os.path.join(work, "train_scene"), os.path.join(work, "parallel", "scene")
+    os.makedirs(scene)
+    for split, n in (("train", PARALLEL_VIEWS), ("val", 1)):
+        os.symlink(os.path.join(src, split), os.path.join(scene, split))
+        with open(os.path.join(src, f"transforms_{split}.json")) as f:
+            meta = json.load(f)
+        meta["frames"] = meta["frames"][:n]
+        with open(os.path.join(scene, f"transforms_{split}.json"), "w") as f:
+            json.dump(meta, f)
+    return scene
+
+
+def _table(state):
+    return state.params["grid"].detach().clone()
+
+
+def _params_digest(params) -> str:
+    import hashlib
+
+    from focnerf_tpu_torch.train.state import param_leaves
+
+    h = hashlib.sha256()
+    for p in param_leaves(params):
+        h.update(p.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def parallel_rank(rank: int, world: int, pdir: str, device: str = "cuda") -> None:
+    """One rank of phase [parallel], in a process of its own on the one card
+    (gloo): the -O DP occupancy step PARALLEL_STEPS times on phase 5's global
+    batches, compose_rays_sharded (K = 2, one object a rank; rank 0 also
+    composes on its own), one slice-parallel dense step at the inputs'
+    voxel resolution (rank 0 also takes the single-device step), then
+    ``main_voxel --voxel_sp --voxel_dp 2`` in this group. Writes rank<r>.pt
+    for the parent."""
+    import torch
+
+    from focnerf_tpu_torch import interop
+    from focnerf_tpu_torch.apps import main_voxel
+    from focnerf_tpu_torch.parallel.distributed import initialize, shutdown
+    from focnerf_tpu_torch.parallel.mesh import make_mesh
+    from focnerf_tpu_torch.parallel.sharding import (
+        compose_rays_sharded,
+        make_sharded_train_step_occupancy,
+        shard_objects,
+    )
+    from focnerf_tpu_torch.parallel.voxel_sp import _gather_field, make_voxel_sp_step
+    from focnerf_tpu_torch.render import baked as tb
+    from focnerf_tpu_torch.render.compose import compose_rays
+    from focnerf_tpu_torch.train import voxel as tvox
+    from focnerf_tpu_torch.train.state import TrainState
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    summary = initialize(rank, world, init_method=f"file://{pdir}/store", timeout_s=PARALLEL_RANK_TIMEOUT,
+                         device=dev)
+    out = {"backend": summary["backend"]}
+    times = {"start": time.time()}
+    inp = torch.load(os.path.join(pdir, "inputs.pt"), map_location=dev, weights_only=False)
+    cfg = interop.config_from_dict(inp["cfg"])
+    times["inputs"] = time.time()
+    mesh = make_mesh(device=dev)
+    kw, res = inp["step_kw"], inp["voxel_res"]
+
+    # -O data parallel: PARALLEL_STEPS steps of the global batches
+    state = TrainState(inp["params"], lr=inp["lr"], iters=inp["iters"])
+    step = make_sharded_train_step_occupancy(cfg, mesh, **kw)
+    sync()
+    reset_counts()
+    t0 = time.time()
+    losses = []
+    for s, batch in enumerate(inp["batches"]):
+        m = step(state, batch, inp["occ"], _parallel_draws(cfg, batch["rays_o"].shape[0], kw["slab"], s, dev))
+        losses.append(float(m["loss"]))
+        if s == 0:
+            out["table1"] = _table(state).cpu()
+            out["march_iters0"] = m["march_iters"]
+    sync()
+    out["dp_s"] = time.time() - t0
+    times["dp"] = time.time()
+    out["dp_launches"] = read_counts()
+    out["losses"], out["digest"] = losses, _params_digest(state.params)
+
+    # object-sharded composition, K = 2: phase 5's object and a shifted copy
+    objs, feats, offsets = [inp["params"], inp["params"]], inp["compose_feats"], inp["compose_offsets"]
+    reset_counts()
+    got = compose_rays_sharded(shard_objects(objs, mesh), cfg, inp["rays_o"], inp["rays_d"], mesh, feats, offsets)
+    out["compose_launches"] = read_counts()
+    if rank == 0:
+        want = compose_rays(objs, cfg, inp["rays_o"], inp["rays_d"], feats, offsets)
+        out["compose_err"] = {k: float((got[k] - want[k]).abs().mean()) for k in ("image", "depth", "alpha")}
+        out["compose_alpha"] = float(want["alpha"].mean())
+    times["compose"] = time.time()
+
+    # one slice-parallel dense step at res^3 against one device
+    pose, img, intr = inp["voxel_pose"], inp["voxel_image"], inp["voxel_intr"]
+    axis, flip = tb.view_axis(pose.cpu().numpy(), 1.0)
+    wgt, mask = tb.warp_gt_to_intermediate(img, pose, intr, 1.0, axis=axis, flip=flip, ri=2 * res)
+    raw0 = tvox.init_voxel_field(res, generator=torch.Generator().manual_seed(0), device=dev)
+    init, sp_step, shard = make_voxel_sp_step(mesh, intr, resolution=res, warp_axis=axis, flip=flip)
+    sp = init(shard(raw0))
+    sync()
+    t0 = time.time()
+    sp_mse = float(sp_step(sp, pose, wgt, mask))
+    sync()
+    out["sp_step_s"] = time.time() - t0
+    full = _gather_field(sp.leaves[0], axis, mesh.get_group())
+    if rank == 0:
+        one = tvox.FieldState(raw0, 5e-2)
+        loss_fn = tvox._make_loss(axis, flip, raw_fn=lambda r, t: r, reg_fn=lambda r: 1e-4 * tvox.tv_loss(r),
+                                  bound=1.0, sh_degree=0, ri=2 * res, bg_color=1.0, density_scale=1.0,
+                                  remat=True, supervise="intermediate")
+        loss, mse = loss_fn(one.params, pose, 0.0, wgt, mask)
+        loss.backward()
+        one.optimizer.step()
+        d_sp, d_one = full - raw0, one.leaves[0].detach() - raw0
+        out["sp"] = {"mse": sp_mse, "mse_one": float(mse.detach()), "axis": axis, "flip": flip,
+                     "update_rel": float((d_sp - d_one).norm() / d_one.norm().clamp(min=1e-30))}
+    del full, sp, raw0
+    times["sp"] = time.time()
+
+    # main_voxel --voxel_sp --voxel_dp 2 in this group (a data x slice = 2 x 1 mesh)
+    vol, info = main_voxel.main([inp["scene"], "--workspace", os.path.join(pdir, "dpsp_ws"), "--bake_res",
+                                 str(res), "--scale", str(inp["scale"]), "--bound", "1.0", "--iters",
+                                 str(PARALLEL_DPSP_ITERS), "--voxel_sp", "--voxel_dp", "2"], device=dev)
+    out["dpsp"] = {"mesh": info["mesh"], "step_mse": [float(x) for x in info["step_mse"]],
+                   "seconds": info["seconds"], "rgba_digest": _params_digest({"v": vol.rgba})}
+    times["dpsp"] = time.time()
+    names = list(times)
+    out["times"] = {b: round(times[b] - times[a], 2) for a, b in zip(names, names[1:])}
+    torch.save(out, os.path.join(pdir, f"rank{rank}.pt"))
+    shutdown()
+
+
+def _start_ranks(pdir: str, world: int, device: str):
+    """Start ``world`` parallel_rank processes (output to rank<r>.log)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    procs = []
+    for r in range(world):
+        with open(os.path.join(pdir, f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke.parallel_rank({r}, {world}, {pdir!r}, "
+                                       f"{device!r})"], cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _rank_logs(pdir: str, n: int):
+    out = []
+    for r in range(n):
+        with open(os.path.join(pdir, f"rank{r}.log")) as f:
+            out.append(f.read())
+    return out
+
+
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _wait_ranks(pdir: str, procs, deadline: float):
+    """Wait until every rank has exited; a rank that fails, or the deadline
+    passing, kills them all and fails the phase with their logs."""
+    failed = None
+    while failed is None:
+        codes = [p.poll() for p in procs]
+        if any(c not in (None, 0) for c in codes):
+            failed = f"rank {next(r for r, c in enumerate(codes) if c not in (None, 0))} exited with an error"
+        elif all(c == 0 for c in codes):
+            return
+        elif time.time() > deadline:
+            failed = f"the ranks ran past their {PARALLEL_RANK_TIMEOUT} s"
+        else:
+            time.sleep(0.2)
+    _kill(procs)
+    tail = "\n".join(f"--- rank {r}:\n{text[-3000:]}" for r, text in enumerate(_rank_logs(pdir, len(procs))))
+    raise AssertionError(f"[parallel] {failed}\n{tail}")
+
+
+def phase_parallel(work: str, dev, smi: str, trainer, ds) -> dict:
+    """The multi-device paths: the world-1 -O DP step on NCCL in this
+    process, then PARALLEL_RANKS ranks on the one card over gloo
+    (``parallel_rank``), then ``torchrun --nproc_per_node 2 -m
+    focnerf_tpu_torch.apps.main_voxel --voxel_sp`` at VOXEL_RES^3. Returns
+    the kernels' launches summed over the ranks' DP steps and sharded
+    composition."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch import interop
+    from focnerf_tpu_torch.apps.main_voxel import _rgb_on_white
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.core.rays import get_rays
+    from focnerf_tpu_torch.parallel.distributed import initialize, shutdown
+    from focnerf_tpu_torch.parallel.mesh import make_mesh
+    from focnerf_tpu_torch.parallel.sharding import make_sharded_train_step_occupancy
+    from focnerf_tpu_torch.train.state import TrainState, detached
+
+    pdir = os.path.join(work, "parallel")
+    shutil.rmtree(pdir, ignore_errors=True)
+    scene, scale = parallel_scene(work), parse_options(["x"]).scale
+    cfg = trainer.cfg
+    kw = dict(dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps, slab=trainer.active_slab,
+              skip_field=trainer.skip_march, min_near=trainer.min_near, color_space=trainer.color_space,
+              alpha_weight=trainer.alpha_loss)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batches = []
+    for _ in range(PARALLEL_STEPS):
+        b = ds.train_batch(gen)
+        batches.append({k: v for k, v in b.items() if k != "view"})
+    n_rays = batches[0]["rays_o"].shape[0]
+    view = ds.eval_view(0)
+    size = 64
+    intr = np.asarray(ds.intrinsics, np.float32) * np.float32(size / ds.W)
+    rays = get_rays(view["pose"], intr, size, size, device=dev)
+    feat = view["obj_feat"] if "obj_feat" in view else torch.zeros(max(cfg.yolo_feats_dim, 1), device=dev)
+    imgs = _rgb_on_white(ds)
+    inp = {
+        "cfg": interop.config_to_dict(cfg), "params": detached(trainer.state.params),
+        "lr": 1e-2, "iters": 30000, "step_kw": kw, "batches": batches,
+        "occ": trainer._occ_bits_for_batch(), "rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
+        "compose_feats": torch.stack([feat, feat]),
+        "compose_offsets": torch.tensor([[0.0, 0.0, 0.0], [0.3, 0.0, 0.0]], device=dev),
+        "voxel_pose": torch.as_tensor(ds.poses[0], device=dev), "voxel_image": imgs[0],
+        "voxel_intr": torch.as_tensor(np.asarray(ds.intrinsics, np.float32), device=dev),
+        "scene": scene, "scale": scale, "voxel_res": VOXEL_RES,
+    }
+    torch.save(inp, os.path.join(pdir, "inputs.pt"))
+    del imgs
+
+    # world size 1 on NCCL in this process: the same step on the whole batch
+    summary = initialize(device=dev)
+    if summary["num_processes"] != 1 or summary["backend"] != ("nccl" if dev.type == "cuda" else "gloo"):
+        raise AssertionError(f"[parallel] world-1 group: {summary}")
+    state = TrainState(inp["params"], lr=inp["lr"], iters=inp["iters"])
+    grid0 = _table(state)
+    m1 = make_sharded_train_step_occupancy(cfg, make_mesh(device=dev), **kw)(
+        state, batches[0], inp["occ"], _parallel_draws(cfg, n_rays, kw["slab"], 0, dev))
+    loss1, grid1 = float(m1["loss"]), _table(state)
+    shutdown()
+    del state
+
+    # the ranks and, beside them, torchrun (the two share the card and the
+    # host: the DP step's ms/step below is taken beside torchrun's start-up)
+    ws = os.path.join(pdir, "sp_ws")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(PARALLEL_RANKS),
+           "-m", "focnerf_tpu_torch.apps.main_voxel", scene, "--workspace", ws, "--bake_res", str(VOXEL_RES),
+           "--scale", str(scale), "--bound", "1.0", "--iters", str(PARALLEL_SP_ITERS), "--voxel_sp"]
+    t0 = time.time()
+    procs = _start_ranks(pdir, PARALLEL_RANKS, dev.type)
+    try:
+        with open(os.path.join(pdir, "torchrun.log"), "w") as log:
+            cli = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            _wait_ranks(pdir, procs, t0 + PARALLEL_RANK_TIMEOUT)
+            ranks_s = time.time() - t0
+            cli.wait(timeout=max(t0 + PARALLEL_RANK_TIMEOUT - time.time(), 1))
+        finally:
+            _kill([cli])
+    finally:
+        _kill(procs)
+    cli_s = time.time() - t0
+    logs = _rank_logs(pdir, PARALLEL_RANKS)
+    with open(os.path.join(pdir, "torchrun.log")) as f:
+        cli_out = f.read()
+    res = [torch.load(os.path.join(pdir, f"rank{r}.pt"), weights_only=False) for r in range(PARALLEL_RANKS)]
+    r0 = res[0]
+    loss_rel = abs(r0["losses"][0] - loss1) / abs(loss1)
+    d_dp, d_one = r0["table1"].to(dev) - grid0, grid1 - grid0
+    table_rel = float((d_dp - d_one).norm() / d_one.norm().clamp(min=1e-30))
+    launches = {k: sum(r["dp_launches"][k] + r["compose_launches"][k] for r in res) for k in res[0]["dp_launches"]}
+    print(f"[parallel] world 1 on {summary['backend']} in this process; {PARALLEL_RANKS} ranks on the one card "
+          f"over {r0['backend']} (rank processes {ranks_s:.1f} s in all; rank 0's seconds after its start-up "
+          f"{r0['times']})")
+    print(f"[parallel] -O DP occupancy step at full width, {n_rays} rays global ({n_rays // PARALLEL_RANKS}"
+          f" a rank), slab {kw['slab']}: first loss {r0['losses'][0]:.6g} vs world 1 {loss1:.6g} (rel {loss_rel:.3g}, "
+          f"limit {PARALLEL_LOSS_REL}); table update rel L2 {table_rel:.3g} (limit {PARALLEL_TABLE_REL}); "
+          f"{PARALLEL_STEPS} steps in {r0['dp_s']:.2f} s ({r0['dp_s'] / PARALLEL_STEPS * 1e3:.1f} ms/step); losses "
+          f"{', '.join(f'{x:.4f}' for x in r0['losses'])}; params after {PARALLEL_STEPS} steps equal on every rank: "
+          f"{len({r['digest'] for r in res}) == 1}; launches per rank "
+          f"{[r['dp_launches'] for r in res]} ({smi})")
+    print(f"[parallel] compose_rays_sharded K = 2 ({PARALLEL_RANKS} ranks, one object each) against compose_rays on "
+          f"rank 0, {size}x{size} rays x 512 samples: mean abs error {r0['compose_err']} (limit "
+          f"{PARALLEL_COMPOSE_MEAN}); mean alpha {r0['compose_alpha']:.3f}; launches per rank "
+          f"{[r['compose_launches'] for r in res]}")
+    sp = r0["sp"]
+    sp_rel = abs(sp["mse"] - sp["mse_one"]) / abs(sp["mse_one"])
+    print(f"[parallel] slice-parallel dense step at {VOXEL_RES}^3 (axis {sp['axis']}, flip {sp['flip']}, ri "
+          f"{2 * VOXEL_RES}, bf16 operands) on {PARALLEL_RANKS} ranks against one device: mse {sp['mse']:.6g} vs "
+          f"{sp['mse_one']:.6g} (rel {sp_rel:.3g}), field update rel L2 {sp['update_rel']:.3g} (limits "
+          f"{PARALLEL_VOXEL_REL}); {r0['sp_step_s'] * 1e3:.1f} ms for the step on rank 0")
+    dpsp = r0["dpsp"]
+    print(f"[parallel] main_voxel --voxel_sp --voxel_dp 2 at {VOXEL_RES}^3: mesh {dpsp['mesh']}, "
+          f"{len(dpsp['step_mse'])} steps, mse {', '.join(f'{x:.4f}' for x in dpsp['step_mse'])}, "
+          f"{dpsp['seconds']:.2f} s of fit")
+    if not (loss_rel <= PARALLEL_LOSS_REL and table_rel <= PARALLEL_TABLE_REL):
+        raise AssertionError("[parallel] the DP step disagrees with the world-1 step")
+    if len({r["digest"] for r in res}) != 1:
+        raise AssertionError("[parallel] the ranks' params differ after the DP steps")
+    for name in ("composite_rays_fused", "composite_rays_fused_backward", "hashgrid_table_grad"):
+        if not launches[name] > 0:
+            raise AssertionError(f"[parallel] {name} was not launched: {launches}")
+    if not max(r0["compose_err"].values()) <= PARALLEL_COMPOSE_MEAN or not 0.0 < r0["compose_alpha"]:
+        raise AssertionError(f"[parallel] sharded composition: {r0['compose_err']}")
+    if not (sp_rel <= PARALLEL_VOXEL_REL and sp["update_rel"] <= PARALLEL_VOXEL_REL):
+        raise AssertionError("[parallel] the slice-parallel step disagrees with one device")
+    if dpsp["mesh"] != {"data": 2, "slice": 1} or not np.isfinite(dpsp["step_mse"]).all() or \
+            len({r["dpsp"]["rgba_digest"] for r in res}) != 1:
+        raise AssertionError(f"[parallel] main_voxel --voxel_sp --voxel_dp 2: {[r['dpsp'] for r in res]}")
+    if "[dpspvoxel] trained on a 2x1 (data x slice) mesh" not in logs[0] or "[dpspvoxel]" in logs[1]:
+        raise AssertionError("[parallel] --voxel_dp: rank 0 alone should print [dpspvoxel]")
+
+    # main_voxel --voxel_sp through torchrun, one process a rank
+    if cli.returncode != 0:
+        raise AssertionError(f"[parallel] torchrun main_voxel --voxel_sp exited {cli.returncode}:\n{cli_out[-4000:]}")
+    import re
+
+    mses = [float(x) for x in re.findall(r"\[spvoxel\] iter \d+/\d+ mse ([0-9.]+)", cli_out)]
+    trained = re.findall(r"\[voxel\] \d+ iters in ([0-9.]+)s — train PSNR ([0-9.]+) dB, ([0-9]+) rays/s", cli_out)
+    print(f"[parallel] torchrun --nproc_per_node {PARALLEL_RANKS} -m focnerf_tpu_torch.apps.main_voxel --voxel_sp "
+          f"--bake_res {VOXEL_RES} --iters {PARALLEL_SP_ITERS}: {cli_s:.1f} s with start-up, loading, saving, mesh "
+          f"and val (beside the ranks); logged mse "
+          f"{', '.join(f'{x:.4f}' for x in mses)}; fit {trained}; backends "
+          f"{sorted(set(re.findall(r'backend (\w+)', cli_out)))} ({smi})")
+    for name in (f"baked_{VOXEL_RES}_sh0.npz", "mesh.obj", "log.txt"):
+        if not os.path.exists(os.path.join(ws, name)):
+            raise AssertionError(f"[parallel] torchrun main_voxel --voxel_sp wrote no {name}")
+    with open(os.path.join(ws, "log.txt")) as f:
+        lines = f.read().splitlines()
+    if cli_out.count(f"[spvoxel] trained sharded over {PARALLEL_RANKS} devices") != 1 or len(lines) != 1:
+        raise AssertionError(f"[parallel] torchrun main_voxel --voxel_sp: want one writer, log {lines}")
+    # a few dozen steps over the views' variants move the mse by less than
+    # the views differ: the first step's agreement with one device (above)
+    # is the check of the values, this one of the run
+    val = re.findall(r"\[voxel\] val PSNR: ([0-9.]+) dB", cli_out)
+    if len(trained) != 1 or len(val) != 1 or not (len(mses) >= 2 and np.isfinite(mses).all()):
+        raise AssertionError(f"[parallel] torchrun main_voxel --voxel_sp: mse {mses}, fit {trained}, val {val}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3966,6 +4370,7 @@ def main() -> int:
     phase("lpips", phase_lpips, work, dev, smi)
     no_preload_launches = phase("no-preload", phase_no_preload, work, dev, smi, ds)
     clip_launches = phase("clip", phase_clip, work, dev, smi, ds)
+    parallel_launches = phase("parallel", phase_parallel, work, dev, smi, trainer, ds)
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
     line = [{**k, "launches": launches[k["name"]], "launches_compose": composed["combined"][k["name"]],
@@ -3975,7 +4380,7 @@ def main() -> int:
              "launches_voxel": voxel_launches[k["name"]], "launches_uniform": uniform_launches[k["name"]],
              "launches_o2": o2_launches[k["name"]], "launches_dnerf": dnerf_launches[k["name"]],
              "launches_viewer": viewer_launches[k["name"]], "launches_no_preload": no_preload_launches[k["name"]],
-             "launches_clip": clip_launches[k["name"]]}
+             "launches_clip": clip_launches[k["name"]], "launches_parallel": parallel_launches[k["name"]]}
             for k in kernels]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))

@@ -19,9 +19,18 @@ writes the workspace's artifacts in JAX's formats, so either package (and
   - every family: ``[<tag>] ... train PSNR x dB, y rays/s`` and ``val PSNR:
     x dB over n views`` on stdout and a line in ``<workspace>/log.txt``.
 
-``--voxel_sp`` and ``--voxel_dp`` (the JAX package's multi-device steps)
-are not ported and are refused; ``--steps_per_dispatch K`` runs JAX's
-update sequence one step at a time.
+``--voxel_sp`` trains the dense family slice-parallel over every rank
+(``parallel/voxel_sp.py``; ``--voxel_c2f S`` stages it), ``--voxel_sp
+--voxel_dp N`` on a hybrid (N data rows x ranks/N slice shards) mesh. One
+process per device, launched by torchrun (without it: one rank):
+
+  torchrun --nproc_per_node 2 -m focnerf_tpu_torch.apps.main_voxel <scene> \
+      --workspace ws --bake_res 256 --voxel_sp [--voxel_dp 2]
+
+Rank 0 alone writes the volume, the mesh and the log. ``--voxel_dp``
+without ``--voxel_sp`` is ignored, as in JAX (one device, and one line says
+so); ``--voxel_sp --voxel_kplanes`` is refused (not ported yet).
+``--steps_per_dispatch K`` runs JAX's update sequence one step at a time.
 """
 
 from __future__ import annotations
@@ -80,9 +89,16 @@ def _refuse(opt):
         raise ValueError("pick ONE family: --voxel_dynamic | --voxel_vm K | --voxel_kplanes K "
                          "(or none for the dense field)")
     if opt.voxel_sp:
-        raise NotImplementedError("--voxel_sp (slice-sharded voxel training) is not ported yet")
-    if opt.voxel_dp > 0:
-        raise NotImplementedError("--voxel_dp (pose-parallel voxel training) is not ported yet")
+        if opt.voxel_dynamic or opt.voxel_vm > 0:
+            raise ValueError("--voxel_sp shards the dense and K-planes families; drop --voxel_vm/--voxel_dynamic "
+                             "(their factorized params replicate: use the DP step)")
+        if opt.voxel_supervise != "intermediate":
+            raise ValueError("--voxel_sp trains with intermediate-plane supervision only (parallel/voxel_sp.py)")
+        if opt.voxel_kplanes > 0:
+            raise NotImplementedError("--voxel_sp --voxel_kplanes (parallel/kplanes_sp.py) is not ported yet; "
+                                      "it comes with vm_sp.py in the next slice of the port")
+        if opt.voxel_dp > 0 and opt.voxel_c2f > 1:
+            raise ValueError("--voxel_dp does not stage yet; drop --voxel_c2f or --voxel_dp")
     if opt.voxel_supervise != "intermediate" and n_fam:
         raise ValueError("--voxel_supervise is only implemented for the dense family; the VM and "
                          "dynamic families train with intermediate-plane supervision")
@@ -143,6 +159,35 @@ def _train_dynamic(opt, train_ds, val_ds, imgs):
     return field, info
 
 
+def _train_sp(opt, train_ds, imgs):
+    """--voxel_sp [--voxel_c2f S | --voxel_dp N]: the dense fit over every
+    rank of the default group (the caller has joined it)."""
+    import torch.distributed as dist
+
+    from focnerf_tpu_torch.parallel import voxel_sp
+
+    n_dev = dist.get_world_size()
+    if opt.voxel_dp > 0 and n_dev % opt.voxel_dp:
+        raise ValueError(f"--voxel_dp {opt.voxel_dp} must divide the {n_dev} ranks")
+    n_slice = n_dev // opt.voxel_dp if opt.voxel_dp > 0 else n_dev
+    if opt.bake_res % n_slice:
+        raise ValueError(f"--bake_res {opt.bake_res} must divide evenly over the {n_slice} slice shards")
+    args = (train_ds.poses, imgs, train_ds.intrinsics)
+    kw = dict(seed=opt.seed, resolution=opt.bake_res, bound=opt.bound, sh_degree=opt.bake_sh, iters=opt.iters,
+              bg_color=1.0, log_every=max(opt.iters // 10, 1), device=train_ds.device)
+    if opt.voxel_dp > 0:
+        vol, info = voxel_sp.fit_voxels_dp_sp(*args, dp=opt.voxel_dp, **kw)
+        if dist.get_rank() == 0:
+            print(f"[dpspvoxel] trained on a {info['mesh']['data']}x{info['mesh']['slice']} (data x slice) mesh")
+    elif opt.voxel_c2f > 1:
+        vol, info = voxel_sp.fit_voxels_sp_c2f(*args, stages=opt.voxel_c2f, **kw)
+    else:
+        vol, info = voxel_sp.fit_voxels_sp(*args, **kw)
+        if dist.get_rank() == 0:
+            print(f"[spvoxel] trained sharded over {info['n_devices']} devices")
+    return vol, info
+
+
 def _train_static(opt, train_ds, imgs):
     """Dense (optionally c2f or screen-supervised) or --voxel_vm: fit and
     return (volume, info); VM saves (and warm-starts from) its factors."""
@@ -184,13 +229,35 @@ def _train_static(opt, train_ds, imgs):
 def main(argv=None, device=None):
     """Train the chosen family on ``device`` (None: ``cuda``). Returns
     (volume or field, info): info has the fit's "psnr", "rays_per_sec",
-    "seconds", "step_mse" and, with a val split, "val_psnr"."""
-    from focnerf_tpu_torch.data.provider import DatasetOptions, NeRFDataset
-    from focnerf_tpu_torch.render.baked import load_volume, save_volume
+    "seconds", "step_mse" and, with a val split, "val_psnr". With
+    ``--voxel_sp`` it joins (or creates) the default process group and every
+    rank returns the trained volume; only rank 0 writes and evaluates."""
 
     opt = parse_options(argv)
     _refuse(opt)
     device = resolve_device(device)
+    if opt.voxel_dp > 0 and not opt.voxel_sp:
+        print(f"[voxel] --voxel_dp {opt.voxel_dp} is ignored without --voxel_sp: training on one device")
+    if not opt.voxel_sp:
+        return _main(opt, device)
+    import torch.distributed as dist
+
+    from focnerf_tpu_torch.parallel.distributed import initialize, shutdown
+
+    owns_group = not dist.is_initialized()  # a torchrun launch, or one rank
+    initialize(device=device)
+    try:
+        return _main(opt, device)
+    finally:
+        if owns_group:
+            shutdown()
+
+
+def _main(opt, device):
+    from focnerf_tpu_torch.data.provider import DatasetOptions, NeRFDataset
+    from focnerf_tpu_torch.parallel.distributed import is_main_process
+    from focnerf_tpu_torch.render.baked import load_volume, save_volume
+
     os.makedirs(opt.workspace, exist_ok=True)
 
     ds_opt = DatasetOptions(path=opt.path, scale=opt.scale, offset=tuple(opt.offset), downscale=opt.downscale,
@@ -211,7 +278,9 @@ def main(argv=None, device=None):
         return _train_dynamic(opt, train_ds, val_ds, imgs)
 
     t0 = time.time()
-    vol, info = _train_static(opt, train_ds, imgs)
+    vol, info = _train_sp(opt, train_ds, imgs) if opt.voxel_sp else _train_static(opt, train_ds, imgs)
+    if not is_main_process():
+        return vol, info
     print(f"[voxel] {opt.iters} iters in {time.time() - t0:.1f}s — "
           f"train PSNR {info['psnr']:.2f} dB, {info['rays_per_sec']:.0f} rays/s")
 

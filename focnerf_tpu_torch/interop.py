@@ -195,3 +195,18 @@ def kplanes_field_from_jax(field, device="cpu"):
     from focnerf_tpu_torch.train.voxel_kplanes import KPlanesField
 
     return _field_from_jax(KPlanesField, field, device)
+
+
+def field_slab(raw: torch.Tensor, axis: int, index: int, count: int) -> torch.Tensor:
+    """Slab ``index`` of ``count`` equal slabs of a full field [R, R, R, C]
+    along spatial ``axis`` (the slice-parallel shard of that rank)."""
+    R = raw.shape[axis]
+    if R % count:
+        raise ValueError(f"resolution {R} does not divide into {count} slabs")
+    per = R // count
+    return raw.narrow(axis, index * per, per).contiguous()
+
+
+def join_field_slabs(slabs, axis: int) -> torch.Tensor:
+    """The full field from its slabs in rank order (``field_slab``'s inverse)."""
+    return torch.cat(list(slabs), dim=axis)

@@ -116,8 +116,10 @@ def _target(cfg: NeRFConfig, batch: Dict, draws: Dict, color_space: str):
 
 
 def _loss(cfg: NeRFConfig, params, batch: Dict, draws: Dict, pixels, gt, out, *, mask_penalty: float,
-          alpha_weight: float, tv_weight: float):
-    """(loss, per-ray error [N]) of a rendered batch ``out``."""
+          alpha_weight: float, tv_weight: float, norm_fn=_safe_norm):
+    """(loss, per-ray error [N]) of a rendered batch ``out``. ``norm_fn`` is
+    the mask penalty's norm (the data-parallel step's spans every rank's
+    rows)."""
     per_ray = ((out["image"] - gt) ** 2).mean(-1)
     loss = per_ray.mean()
     if alpha_weight > 0.0 and pixels.shape[-1] == 4:
@@ -125,7 +127,7 @@ def _loss(cfg: NeRFConfig, params, batch: Dict, draws: Dict, pixels, gt, out, *,
     ray_mask = batch.get("ray_mask")
     if ray_mask is not None:
         outside = torch.where(ray_mask[:, None], torch.zeros_like(out["sigmas"]), out["sigmas"])
-        loss = loss + mask_penalty * _safe_norm(outside)
+        loss = loss + mask_penalty * norm_fn(outside)
     return loss + _tv_term(cfg, params, draws, tv_weight), per_ray.detach()
 
 
@@ -142,6 +144,7 @@ def uniform_loss(
     color_space: str = "srgb",
     alpha_weight: float = 0.0,
     tv_weight: float = 0.0,
+    norm_fn=_safe_norm,
 ):
     """(loss, aux) of one batch through ``render_rays`` with jittered
     samples, differentiable in ``params``; aux holds ``per_ray_error`` [N]."""
@@ -153,7 +156,7 @@ def uniform_loss(
         pdf_u=draws.get("pdf_u"), u=draws.get("u"),
     )
     loss, per_ray = _loss(cfg, params, batch, draws, pixels, gt, out, mask_penalty=mask_penalty,
-                          alpha_weight=alpha_weight, tv_weight=tv_weight)
+                          alpha_weight=alpha_weight, tv_weight=tv_weight, norm_fn=norm_fn)
     return loss, {"per_ray_error": per_ray}
 
 
@@ -192,6 +195,7 @@ def occupancy_loss(
     alpha_weight: float = 0.0,
     skip_field: bool = False,
     tv_weight: float = 0.0,
+    norm_fn=_safe_norm,
 ):
     """(loss, aux) of one batch, differentiable in ``params``. ``occ`` is the
     bool bitfield or, with ``skip_field``, the uint8 skip field. aux holds
@@ -205,7 +209,7 @@ def occupancy_loss(
         perturb=True, noise=draws["noise"], u=draws["u"],
     )
     loss, per_ray = _loss(cfg, params, batch, draws, pixels, gt, out, mask_penalty=mask_penalty,
-                          alpha_weight=alpha_weight, tv_weight=tv_weight)
+                          alpha_weight=alpha_weight, tv_weight=tv_weight, norm_fn=norm_fn)
     aux = {
         "per_ray_error": per_ray,
         "n_samples": out["n_samples"],

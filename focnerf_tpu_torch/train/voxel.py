@@ -95,6 +95,24 @@ def _rebuild(params, leaves):
     return leaves[0] if torch.is_tensor(params) else type(params)(*leaves)
 
 
+class FieldState:
+    """A family's trainable tensors (copies of ``params``' leaves) and their
+    ``torch.optim.Adam`` with optax.adam's settings (eps 1e-8, no weight
+    decay); the optimizer updates the leaves in place."""
+
+    def __init__(self, params, lr: float):
+        self._template = params
+        self.leaves = [p.detach().clone().requires_grad_(True) for p in _leaves(params)]
+        self.optimizer = torch.optim.Adam(self.leaves, lr=lr, eps=1e-8)
+
+    @property
+    def params(self):
+        return _rebuild(self._template, self.leaves)
+
+    def detached(self):
+        return _rebuild(self._template, [p.detach() for p in self.leaves])
+
+
 def _make_loss(
     axis: int,
     flip: bool,
@@ -187,8 +205,8 @@ def _fit_field_loop(
     "rays_per_sec" (supervised rays), "seconds", "step_mse" [iters]}."""
     from focnerf_tpu_torch.render.baked import warp_gt_to_intermediate
 
-    leaves = [p.detach().clone().requires_grad_(True) for p in _leaves(params)]
-    device = leaves[0].device
+    state = FieldState(params, lr)
+    device = state.leaves[0].device
     V = len(poses)
     poses = np.asarray(poses, np.float32)
     gts = torch.as_tensor(images, dtype=torch.float32).to(device)
@@ -201,7 +219,7 @@ def _fit_field_loop(
         print(f"[{tag}] --steps_per_dispatch {steps_per_dispatch}: the port runs the same update "
               "sequence one step at a time (no fused dispatch yet)", flush=True)
 
-    optimizer = torch.optim.Adam(leaves, lr=lr, eps=1e-8)
+    optimizer = state.optimizer
     losses: Dict[Tuple[int, bool], object] = {}
     targets: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
     loss_kw = dict(raw_fn=raw_fn, reg_fn=reg_fn, bound=bound, sh_degree=sh_degree, ri=ri, bg_color=bg_color,
@@ -224,7 +242,7 @@ def _fit_field_loop(
             losses[key] = _make_loss(*key, **loss_kw)
         target, mask = targets_for(v, key)
         optimizer.zero_grad(set_to_none=True)
-        loss, mse = losses[key](_rebuild(params, leaves), poses_dev[v], float(t_arr[v]), target, mask)
+        loss, mse = losses[key](state.params, poses_dev[v], float(t_arr[v]), target, mask)
         loss.backward()
         optimizer.step()
         mses.append(mse.detach())
@@ -239,7 +257,7 @@ def _fit_field_loop(
         "seconds": dt,
         "step_mse": step_mse,
     }
-    return _rebuild(params, [p.detach() for p in leaves]), info
+    return state.detached(), info
 
 
 def _c2f_stage_plan(resolution: int, stages: int, iters: int):
@@ -357,3 +375,97 @@ def _volume_to_raw(vol: BakedVolume, sh_degree: int = 0) -> torch.Tensor:
     s = torch.clamp(sigma, min=1e-6)
     raw_sigma = s + torch.log(-torch.expm1(-s))  # softplus^-1(y) = y + log(1 - exp(-y))
     return torch.cat([raw_payload, raw_sigma], -1)
+
+
+def make_voxel_dp_step(
+    mesh,
+    intrinsics: Sequence[float],
+    *,
+    H: int,
+    W: int,
+    resolution: int,
+    warp_axis: int,
+    flip: bool,
+    bound: float = 1.0,
+    sh_degree: int = 0,
+    lr: float = 5e-2,
+    tv_weight: float = 1e-4,
+    bg_color: float = 1.0,
+    density_scale: float = 1.0,
+    axis: str = "data",
+    intermediate_scale: int = 2,
+    remat: bool = True,
+    supervise: str = "intermediate",
+    collapse_fn=None,
+    reg_fn=None,
+    time_conditioned: bool = False,
+):
+    """Pose-parallel voxel train step over a mesh axis (JAX's
+    ``make_voxel_dp_step``): every rank passes the same global batch of D
+    views of one (warp_axis, flip) variant, renders and differentiates its
+    D/W of them against their targets, the gradient is averaged over the
+    ranks (one all-reduce), and every rank takes the same Adam step on its
+    replica of the params.
+
+    ``supervise`` as ``fit_voxels``: "intermediate" takes pre-warped targets
+    [D, ri, ri, 3] and masks [D, ri, ri], "screen" images [D, H, W, 3]
+    (masks ignored). ``collapse_fn``/``reg_fn`` give a factorized family:
+    params -> raw grid (or (params, t) -> raw grid with
+    ``time_conditioned``, collapsed at each view's own time) and params ->
+    regularizer (defaults: the dense field itself, ``tv_weight`` * TV).
+
+    Returns (init, step): ``init(params)`` -> ``FieldState``;
+    ``step(state, poses [D, 4, 4][, times [D]], targets, masks)`` -> the
+    mean mse over the D views (a device scalar, alike on every rank)."""
+    from focnerf_tpu_torch.parallel.collectives import all_mean, mean_gradients
+
+    if time_conditioned and collapse_fn is None:
+        raise ValueError("time_conditioned=True requires a collapse_fn(params, t): the dense default "
+                         "collapse takes no time (see make_kplanes_dp_step / make_dyn_dp_step)")
+    if collapse_fn is None:
+        collapse_fn = lambda p: p  # noqa: E731 - the dense field is the raw grid
+    if reg_fn is None:
+        reg_fn = lambda p: tv_weight * tv_loss(p)  # noqa: E731
+    raw_fn = collapse_fn if time_conditioned else (lambda raw, t: raw)
+    group = mesh.get_group(axis)
+    rank, world = mesh.get_local_rank(axis), mesh.size(mesh.mesh_dim_names.index(axis))
+    intr = np.asarray(intrinsics, np.float32)
+    ri = resolution * intermediate_scale
+
+    def init(params) -> FieldState:
+        return FieldState(params, lr)
+
+    def run(state: FieldState, poses, times, targets, masks):
+        D = len(poses)
+        if D % world:
+            raise ValueError(f"{D} views do not divide over {world} ranks")
+        device = state.leaves[0].device
+        loss_fn = _make_loss(
+            warp_axis, flip, raw_fn=raw_fn, reg_fn=lambda p: 0.0, bound=bound, sh_degree=sh_degree, ri=ri,
+            bg_color=bg_color, density_scale=density_scale, remat=remat, supervise=supervise,
+            intr=torch.as_tensor(intr, device=device), H=H, W=W,
+        )
+        poses = torch.as_tensor(np.asarray(poses, np.float32), device=device)
+        per = D // world
+        state.optimizer.zero_grad(set_to_none=True)
+        params = state.params
+        base = params if time_conditioned else collapse_fn(params)
+        mses = [loss_fn(base, poses[v], float(times[v]), targets[v], masks[v])[1]
+                for v in range(rank * per, (rank + 1) * per)]
+        mse = torch.stack(mses).mean()
+        (mse + reg_fn(params)).backward()
+        mean_gradients(state.leaves, group)
+        state.optimizer.step()
+        return all_mean(mse.detach(), group)
+
+    if time_conditioned:
+
+        def step(state, poses, times, targets, masks):
+            return run(state, poses, np.asarray(times, np.float32), targets, masks)
+
+    else:
+
+        def step(state, poses, targets, masks):
+            return run(state, poses, np.zeros(len(poses), np.float32), targets, masks)
+
+    return init, step

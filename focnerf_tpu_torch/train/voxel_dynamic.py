@@ -141,3 +141,28 @@ def fit_dyn_voxels(
         density_scale=density_scale, seed=seed, log_every=log_every, remat=remat, times=times,
         tag="dynvoxel", steps_per_dispatch=steps_per_dispatch,
     )
+
+
+def make_dyn_dp_step(
+    mesh,
+    intrinsics: Sequence[float],
+    *,
+    H: int,
+    W: int,
+    resolution: int,
+    warp_axis: int,
+    flip: bool,
+    tv_weight: float = 1e-4,
+    time_smooth_weight: float = 1e-3,
+    **kw,
+):
+    """Pose-parallel DP step of the low-rank dynamic family: each rank
+    collapses the field at its own views' times (the time-conditioned
+    ``make_voxel_dp_step``); step(state, poses, times, targets, masks)."""
+    from focnerf_tpu_torch.train.voxel import make_voxel_dp_step
+
+    return make_voxel_dp_step(
+        mesh, intrinsics, H=H, W=W, resolution=resolution, warp_axis=warp_axis, flip=flip,
+        collapse_fn=collapse_field, reg_fn=lambda f: dyn_reg(f, tv_weight, time_smooth_weight),
+        time_conditioned=True, **kw,
+    )

@@ -221,3 +221,28 @@ def fit_kplanes_c2f(
         stage_psnrs.append(info["psnr"])
     info["stage_psnrs"] = stage_psnrs
     return field, info
+
+
+def make_kplanes_dp_step(
+    mesh,
+    intrinsics: Sequence[float],
+    *,
+    H: int,
+    W: int,
+    resolution: int,
+    warp_axis: int,
+    flip: bool,
+    tv_weight: float = 1e-4,
+    time_smooth_weight: float = 1e-3,
+    **kw,
+):
+    """Pose-parallel DP step of the K-planes family: each rank collapses the
+    six planes at its own views' times (the time-conditioned
+    ``make_voxel_dp_step``); step(state, poses, times, targets, masks)."""
+    from focnerf_tpu_torch.train.voxel import make_voxel_dp_step
+
+    return make_voxel_dp_step(
+        mesh, intrinsics, H=H, W=W, resolution=resolution, warp_axis=warp_axis, flip=flip,
+        collapse_fn=collapse_kplanes, reg_fn=lambda f: kplanes_reg(f, tv_weight, time_smooth_weight),
+        time_conditioned=True, **kw,
+    )

@@ -204,3 +204,26 @@ def fit_vm_c2f(
         field = info["field"]
     info["stage_psnrs"] = stage_psnrs
     return vol, info
+
+
+def make_vm_dp_step(
+    mesh,
+    intrinsics: Sequence[float],
+    *,
+    H: int,
+    W: int,
+    resolution: int,
+    warp_axis: int,
+    flip: bool,
+    tv_weight: float = 1e-4,
+    l1_weight: float = 0.0,
+    **kw,
+):
+    """Pose-parallel DP step of the VM family: ``make_voxel_dp_step`` with the
+    factors replicated on every rank and collapsed inside each rank's loss."""
+    from focnerf_tpu_torch.train.voxel import make_voxel_dp_step
+
+    return make_voxel_dp_step(
+        mesh, intrinsics, H=H, W=W, resolution=resolution, warp_axis=warp_axis, flip=flip,
+        collapse_fn=collapse_vm, reg_fn=lambda f: vm_reg(f, tv_weight, l1_weight), **kw,
+    )

@@ -106,10 +106,14 @@ def test_dynamic_families_write_what_jax_reads(scenes, tmp_path, capsys, family)
         assert f.read().startswith(f"{family} res=16 rank=2 iters=4 val_psnr=")
 
 
-@pytest.mark.parametrize("flags,name", [(["--voxel_sp"], "--voxel_sp"), (["--voxel_dp", "2"], "--voxel_dp"),
+# the multi-device flags the port still refuses (JAX's guards, and the
+# K-planes SP step of a later slice); --voxel_sp and --voxel_dp themselves
+# train (tests/test_torch_parallel.py, test_torch_voxel_sp.py)
+@pytest.mark.parametrize("flags,name", [(["--voxel_sp", "--voxel_vm", "4"], "--voxel_sp"),
+                                        (["--voxel_sp", "--voxel_dp", "2", "--voxel_c2f", "2"], "--voxel_dp"),
                                         (["--voxel_sp", "--voxel_kplanes", "2"], "--voxel_sp")])
 def test_multi_device_options_are_refused_by_name(scenes, tmp_path, flags, name):
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises((ValueError, NotImplementedError), match=name):
         run(scenes[0], str(tmp_path / "sp"), *flags)
 
 
