@@ -52,7 +52,15 @@ non-zero exit code and no result line:
      nvidia-smi samples the SM clock beside each timed training window and
      the table-gradient timing; on one train step at each of the slabs 128,
      32 and 16, the composite backward must mask (T_in < T_thresh) exactly
-     the samples the forward's loop masks;
+     the samples the forward's loop masks; each training step must launch
+     the skip-walk kernel once, and the eval once a round;
+  5b. march kernel (``[kernel-march]``): ``march_rays_skip`` against its
+     plain walk on the card, ts, dts, valid and count bit for bit, on
+     phase 5's trained skip field: a training batch at the slabs 128, 32
+     and 16 (jittered), the iterative eval round's starts (no jitter, and
+     under a cap of iterations), and after phase 17 D-NeRF's time grid;
+     timed at slab 128 (the kernels line) and 16 and at the round's start,
+     beside the plain walk and the bound;
   6. reference: one small view rendered on the card (kernel) and on the CPU
      (plain versions) must agree, through the occupancy path and through the
      uniform path of ``main_nerf --test`` without ``-O`` (the serving
@@ -62,6 +70,15 @@ non-zero exit code and no result line:
      -O2 step in a truncated c2f stage on a gradient phase (the other
      levels' rows exactly 0), the -O step on a patch-sampled batch and with
      the TV term;
+  6a. fused (``[fused]``): ``--steps_per_dispatch`` on the card: the first
+     chunk of ``-O`` (K 16) and ``-O2`` (K 4, two gradient phases) against
+     per-step trainers of the same seed (losses 1e-4 relative, the hash
+     table 1e-3 rel L2; one graph captured per phase, the rest replays; the
+     backward kernels and the walk once a step), the steady state of each
+     at full width, ``main_nerf -O --steps_per_dispatch 16`` beside the run
+     per step (ms/step, occupancy updates' share, replays, launches; both
+     losses must halve) and the dense 256^3 voxel engine at K 8 beside per
+     step (the first chunk's mse 1e-4 relative);
   6b. uniform training: ``main_nerf`` without ``-O`` at full width on phase
      5's scene (one val view), UNIFORM_ITERS steps of 128 + 64 importance
      samples a ray with ``--error_map`` and ``--tv_weight``: ms/step,
@@ -112,7 +129,7 @@ non-zero exit code and no result line:
      default bf16 step's loss within 1e-2;
  14. voxel: ``main_voxel`` through its entry point, dense 256^3 on phase 5's
      sphere scene (300 steps on the c2f ladder 64, 128, 256, ri 512, remat
-     on) and VM rank 16 at 128^3 with ``--bake_quantize`` (150 steps) (each: the train
+     on, ``--steps_per_dispatch 8``: each stage's steps from CUDA graphs) and VM rank 16 at 128^3 with ``--bake_quantize`` (150 steps) (each: the train
      loss must halve and the val PSNR reach 20 dB; the baked npz and the
      mesh must exist), 20 steps at 256^3 with remat on and off (ms/step,
      peak memory), then ``--voxel_dynamic`` and ``--voxel_kplanes 8`` at
@@ -220,8 +237,10 @@ voxel runs (``launches_voxel``), in the uniform training run
 (``launches_o2``), in phase 17's D-NeRF training run (``launches_dnerf``), in
 phase 20's train-while-viewing run (``launches_viewer``), in phase 22's
 ``--no-preload`` run (``launches_no_preload``) and in phase 23's 20 steps
-with CLIP steps (``launches_clip``) and, summed over [parallel]'s two gloo
-ranks, in their 10 DP steps and sharded composition (``launches_parallel``).
+with CLIP steps (``launches_clip``), summed over [parallel]'s two gloo
+ranks, in their 10 DP steps and sharded composition (``launches_parallel``),
+and in [fused]'s ``main_nerf -O --steps_per_dispatch 16`` run
+(``launches_fused``, graph replays counted).
 """
 
 from __future__ import annotations
@@ -276,15 +295,9 @@ GT_RES = 256  # the procedural scene's volume
 
 def counters():
     """Every kernel wrapper, by the name the kernels line uses."""
-    from focnerf_tpu_torch.ops.composite import (
-        composite_rays_fused,
-        composite_rays_fused_backward,
-        composite_rays_resume,
-    )
-    from focnerf_tpu_torch.ops.hashgrid import hashgrid_table_grad
+    from focnerf_tpu_torch.ops import kernel_wrappers
 
-    return {f.__name__: f for f in (composite_rays_fused, composite_rays_resume,
-                                    composite_rays_fused_backward, hashgrid_table_grad)}
+    return {f.__name__: f for f in kernel_wrappers()}
 
 
 def reset_counts():
@@ -972,7 +985,7 @@ def phase_serving(work: str, dev):
 
     check_renders(os.path.join(f"{ws}_background", "results"), VIEWS)
     want = dict(composite_rays_fused=VIEWS * math.ceil(RES * RES / CHUNK), composite_rays_resume=0,
-                composite_rays_fused_backward=0, hashgrid_table_grad=0)
+                composite_rays_fused_backward=0, hashgrid_table_grad=0, march_rays_skip=0)
     if launches != want:
         raise AssertionError(f"serving launches {launches}, want {want}")
     print(f"[serve] main_nerf --test -O: {VIEWS} views of {RES}x{RES} in {wall:.2f} s "
@@ -1104,6 +1117,9 @@ def phase_train(work: str, dev):
         raise AssertionError(f"backward kernels launched {launches}, want once per step ({steps})")
     if launches["composite_rays_fused"] < steps:
         raise AssertionError(f"composite forward launched {launches} times in {steps} steps")
+    if launches["march_rays_skip"] != steps + rounds:
+        raise AssertionError(f"march_rays_skip launched {launches['march_rays_skip']} times, want once a step "
+                             f"({steps}) and once an eval round ({rounds})")
     if trainer.eval_renderer != "iter" or not launches["composite_rays_resume"] == rounds > 0:
         raise AssertionError(f"the {trainer.eval_renderer} eval ran {rounds} rounds, launches {launches}; "
                              "want the iterative renderer, one composite_rays_resume launch a round")
@@ -1128,6 +1144,285 @@ def phase_train(work: str, dev):
     print(f"[train] main_nerf --test -O from the trained checkpoint: {VIEWS} views in {serve_s:.2f} s "
           f"({serve_s / VIEWS:.3f} s/view), launches {served}")
     return launches, trainer
+
+
+MARCH_SLABS = (128, 32, 16)  # the -O slab buckets [kernel-march] holds the kernel at
+ITER_RAYS, ITER_SUB_SLAB, ITER_MAX_ITERS = 65536, 16, 24  # the iterative eval round's march
+
+
+def march_check(tag: str, rays_o, rays_d, nears, fars, skip, time_it: bool = False, plain_iters: int = 3, **kw):
+    """The skip-walk kernel against the plain walk on the same inputs: ts,
+    dts, valid and count must be equal bit for bit. With ``time_it``: the
+    kernel's device time, the plain walk's (device and span: its host reads
+    every 4 iterations are in the span) and the bound, the bytes the walk
+    must move (each ray's inputs, one skip byte per iteration the rays run,
+    the [N, slab] outputs) at HBM_BYTES_PER_S. Returns a dict of the numbers."""
+    import torch
+
+    from focnerf_tpu_torch.ops.marching import march_rays_skip, march_skip_plain
+    from focnerf_tpu_torch.utils.measure import device_ms
+
+    got = march_rays_skip(rays_o, rays_d, nears, fars, skip, **kw)
+    want = march_skip_plain(rays_o, rays_d, nears, fars, skip, **kw)
+    torch.cuda.synchronize()
+    same = {name: torch.equal(getattr(got, name), getattr(want, name)) for name in ("ts", "dts", "valid", "count")}
+    err = float((got.ts - want.ts).abs().max())
+    n, slab = got.ts.shape
+    walked = int(got.ray_iters.sum())
+    out = {"err": err, "rays": n, "slab": slab, "mean_count": float(got.count.float().mean()),
+           "iters": int(got.iters), "plain_iters": want.iters, "walked": walked}
+    if not all(same.values()):
+        r = int((got.ts != want.ts).any(-1).nonzero()[0]) if not same["ts"] else -1
+        raise AssertionError(f"[kernel-march] {tag}: kernel and plain walk differ {same} (max |ts| error {err}; "
+                             f"first ray {r})")
+    line = (f"[kernel-march] march_rays_skip {tag} [{n} rays, slab {slab}]: ts, dts, valid, count equal bit for "
+            f"bit; mean count {out['mean_count']:.1f}, longest walk {out['iters']} iterations (plain walk "
+            f"{want.iters}), {walked} iterations over all rays")
+    if time_it:
+        ms, span = device_ms(lambda: march_rays_skip(rays_o, rays_d, nears, fars, skip, **kw))
+        plain_ms, plain_span = device_ms(lambda: march_skip_plain(rays_o, rays_d, nears, fars, skip, **kw),
+                                         iters=plain_iters)
+        nbytes = n * 32 + walked + n * (9 * slab + 12)
+        out.update(ms=ms, span=span, plain_ms=plain_ms, plain_span=plain_span, bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        line += (f"; device {ms:.5f} ms (call span {span:.4f} ms), plain walk device {plain_ms:.4f} ms (span "
+                 f"{plain_span:.2f} ms), bound {out['bound_ms']:.5f} ms ({nbytes} B)")
+    print(line)
+    return out
+
+
+def phase_march_kernel(trainer, ds, val_ds, dev) -> dict:
+    """``[kernel-march]``: the skip-walk kernel against the plain walk, bit
+    for bit, on phase 5's trained skip field: the -O training shape (4096
+    rays of a batch, dt_gamma 1/128, the start jittered) at the slabs 128,
+    32 and 16; the iterative eval round's start (no jitter: ITER_RAYS rays of
+    a val view from their near, then from where their first round stopped,
+    sub-slab ITER_SUB_SLAB, and once more under a cap of ITER_MAX_ITERS;
+    the view's middle rows, through the object).
+    Timed at slab 128 (the kernels line's numbers) and 16 and at the round's
+    start. Returns the kernels line's entry."""
+    import torch
+
+    from focnerf_tpu_torch.core.geometry import near_far_from_aabb
+    from focnerf_tpu_torch.render.renderer import default_aabb, padded_rays
+
+    cfg = trainer.cfg
+    skip = trainer._occ_bits_for_batch()
+    aabb = default_aabb(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    batch = ds.train_batch(gen)
+    o, d = batch["rays_o"], batch["rays_d"]
+    near, far = near_far_from_aabb(o, d, aabb, trainer.min_near)
+    noise = torch.rand(o.shape[0], generator=gen, device=dev)
+    kw = dict(bound=cfg.bound, dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps)
+    rows = {}
+    for slab in MARCH_SLABS:
+        rows[slab] = march_check(f"-O training batch, jittered, dt_gamma {trainer.dt_gamma:g}", o, d, near, far,
+                                 skip, time_it=slab in (128, 16), noise=noise, slab=slab, **kw)
+    ro, rd = padded_rays(val_ds.poses[0], val_ds.intrinsics, val_ds.H, val_ds.W, ITER_RAYS, dev)
+    mid = (val_ds.H * val_ds.W - ITER_RAYS) // 2  # the view's middle rows: through the object
+    o, d = ro[mid:mid + ITER_RAYS].contiguous(), rd[mid:mid + ITER_RAYS].contiguous()
+    near, far = near_far_from_aabb(o, d, aabb, trainer.min_near)
+    first = march_check("iterative round 1 (a val view, from the near, no jitter)", o, d, near, far, skip,
+                        time_it=True, plain_iters=2, slab=ITER_SUB_SLAB, **kw)
+    from focnerf_tpu_torch.ops.marching import march_rays_skip
+
+    m = march_rays_skip(o, d, near, far, skip, slab=ITER_SUB_SLAB, **kw)
+    last = torch.clamp(m.count - 1, min=0)[:, None]
+    t_cur = torch.where(m.count > 0, (m.ts.gather(1, last) + m.dts.gather(1, last))[:, 0], far)
+    rounds = [first,
+              march_check("iterative round 2 (from where round 1 stopped)", o, d, t_cur, far, skip,
+                          slab=ITER_SUB_SLAB, **kw),
+              march_check(f"iterative round 2 under max_iters {ITER_MAX_ITERS}", o, d, t_cur, far, skip,
+                          slab=ITER_SUB_SLAB, max_iters=ITER_MAX_ITERS, **kw)]
+    row = rows[128]
+    return {
+        "name": "march_rays_skip",
+        "route": "cuda",
+        "source": "focnerf_tpu_torch/csrc/march_skip.cu",
+        "replaces": "focnerf_tpu/ops/marching.py:160 (an XLA while_loop; no Pallas kernel)",
+        "max_abs_err": max(r["err"] for r in (*rows.values(), *rounds)),
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no PyTorch call walks a skip field
+    }
+
+
+FUSED_K, FUSED_O2_K, FUSED_VOXEL_K = 16, 4, 8  # steps per dispatch of the -O, -O2 and dense voxel checks
+# the -O CLI runs: 5 epochs of 50 steps (at 150 steps the loss read 0.070
+# -> 0.041, short of half)
+FUSED_ITERS = 250
+FUSED_VOXEL_ITERS = 48  # the captures (one per shear-warp variant) amortized over 6 chunks
+FUSED_LOSS_REL, FUSED_TABLE_REL = 1e-4, 1e-3  # first chunk: losses (relative), hash table (relative L2)
+
+
+def phase_fused(work: str, dev, smi: str, ds) -> dict:
+    """``[fused]``: ``--steps_per_dispatch`` on the card. (1) The first chunk:
+    trainers with ``main_nerf``'s options for ``-O --steps_per_dispatch
+    FUSED_K`` and ``-O2 --steps_per_dispatch FUSED_O2_K`` (grad-level phases
+    2) train one chunk on phase 5's split beside the per-step trainer of the
+    same seed: the losses within FUSED_LOSS_REL, the hash table after it
+    within FUSED_TABLE_REL (the table gradient's atomics sum in any order),
+    the steps from CUDA graphs (one capture per phase, the rest replays), the
+    backward kernels and the walk once a step. (2) ``main_nerf -O
+    --steps_per_dispatch FUSED_K --iters FUSED_ITERS`` beside the same run
+    per step: ms/step of each, graph replays, launches (the walk once a step
+    and once an eval round), and both losses must halve (first chunk to last).
+    (3) The dense voxel engine ``main_voxel`` trains (``fit_voxels``, remat
+    on) at VOXEL_RES^3 on phase 5's views, FUSED_VOXEL_ITERS steps with
+    ``steps_per_dispatch`` FUSED_VOXEL_K beside per-step: the first chunk's
+    mse within FUSED_LOSS_REL. Returns the CLI run's launches."""
+    import numpy as np
+    import torch
+
+    from focnerf_tpu_torch.apps import main_nerf
+    from focnerf_tpu_torch.apps.main_nerf import trainer_options
+    from focnerf_tpu_torch.apps.main_voxel import _rgb_on_white
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.render.iterative import render_rays_iterative
+    from focnerf_tpu_torch.train.trainer import Trainer
+    from focnerf_tpu_torch.train.voxel import fit_voxels
+
+    scene = os.path.join(work, "train_scene")
+
+    def chunk_stats(tr):
+        chunks = list(tr._fused_cache.values())
+        return (sum(c.steps.captures for c in chunks), sum(c.steps.replays for c in chunks))
+
+    for flags, K in ((["-O"], FUSED_K), (["-O2"], FUSED_O2_K)):
+        runs, trainers = {}, {}
+        for k in (1, K):
+            opt = parse_options([scene, *flags, "--iters", str(FUSED_ITERS), "--steps_per_dispatch", str(k)])
+            ws = os.path.join(work, f"fused_first_{flags[0].strip('-')}_{k}")
+            tr = Trainer("ngp", opt.nerf_config(), workspace=ws, device=dev, **trainer_options(opt))
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train(ds, None, max_epochs=1, steps_per_epoch=K)
+            torch.cuda.synchronize()
+            runs[k] = (np.asarray(tr.step_losses), tr.state.params["grid"].detach().clone(), read_counts(),
+                       chunk_stats(tr), (time.perf_counter() - t0) * 1e3 / K)
+            trainers[k] = tr
+        (l1, g1, n1, _, ms1), (lk, gk, nk, (cap, rep), msk) = runs[1], runs[K]
+        loss_rel = float(np.abs(lk - l1).max() / np.abs(l1).max())
+        table_rel = float((gk - g1).norm() / g1.norm())
+        P = 2 if flags == ["-O2"] else 1
+        print(f"[fused] {flags[0]} first chunk of {K} steps (trainers with main_nerf's options, phase 5's split): "
+              f"losses rel {loss_rel:.3g} (limit {FUSED_LOSS_REL}), hash table rel L2 {table_rel:.3g} (limit "
+              f"{FUSED_TABLE_REL}); {cap} graphs captured, {rep} replays; {msk:.2f} ms/step fused, {ms1:.2f} per "
+              f"step (the first steps: captures and warm-up included); launches fused {nk}, per step {n1}")
+        for name in ("hashgrid_table_grad", "composite_rays_fused_backward", "march_rays_skip"):
+            if not nk[name] == n1[name] == K:
+                raise AssertionError(f"[fused] {flags[0]}: {name} launched {nk[name]} (fused) / {n1[name]} times "
+                                     f"in {K} steps, want once a step")
+        if not (cap == P and rep == K - P):
+            raise AssertionError(f"[fused] {flags[0]}: {cap} captures and {rep} replays in {K} steps")
+        if not (np.isfinite(lk).all() and loss_rel <= FUSED_LOSS_REL and table_rel <= FUSED_TABLE_REL):
+            raise AssertionError(f"[fused] {flags[0]}: the fused chunk disagrees with per-step: losses {lk} vs {l1}")
+        if flags == ["-O"]:
+            # steady state, the grid update at the tick outside the clock: the
+            # per-step trainer's steps K + 2 .. 2K (its step K + 1 updates the
+            # grid), against the fused trainer's next chunk after its update
+            one, fused = trainers[1], trainers[K]
+            one._train_step(ds)
+            fused._maybe_update_occupancy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(K - 1):
+                one._train_step(ds)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fused._run_fused_chunk(ds, K)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            print(f"[fused] -O steady state at full width, no grid update inside: per step "
+                  f"{(t1 - t0) * 1e3 / (K - 1):.2f} ms/step, fused {(t2 - t1) * 1e3 / K:.2f} ms/step (a chunk of {K}: "
+                  f"its draws, their staging and {K} graph replays) ({smi})")
+        del runs, trainers, g1, gk
+
+    out = {}
+    for k in (1, FUSED_K):
+        ws = os.path.join(work, f"fused_cli_{k}")
+        argv = [scene, "-O", "--workspace", ws, "--disable_yolo", "--iters", str(FUSED_ITERS), "--mesh_res", "0",
+                "--ckpt_interval", "10", "--steps_per_dispatch", str(k)]
+        reset_counts()
+        render_rays_iterative.rounds = 0
+        grid_s, real_update = [0.0, 0], Trainer._maybe_update_occupancy
+
+        def timed_update(self):  # the occupancy updates' share of the training time
+            if self.occupancy is None or self.global_step % self.update_extra_interval:
+                return real_update(self)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            real_update(self)
+            torch.cuda.synchronize()
+            grid_s[0] += time.perf_counter() - t
+            grid_s[1] += 1
+
+        Trainer._maybe_update_occupancy = timed_update
+        torch.cuda.synchronize()
+        t0 = time.time()
+        try:
+            (tr,) = main_nerf.main(argv, device=dev)
+        finally:
+            Trainer._maybe_update_occupancy = real_update
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        with open(os.path.join(ws, "train_times.txt")) as f:
+            train_s = float(f.read().split(":")[1].split("s")[0])
+        losses = np.asarray(tr.step_losses)
+        steps = len(losses)
+        out[k] = dict(losses=losses, launches=read_counts(), rounds=render_rays_iterative.rounds, graphs=chunk_stats(tr),
+                      ms=train_s / steps * 1e3, wall=wall, psnr=tr.last_eval_results["PSNR"],
+                      steps_ms=(train_s - grid_s[0]) / steps * 1e3)
+        first, last = float(losses[:FUSED_K].mean()), float(losses[-FUSED_K:].mean())
+        o = out[k]
+        print(f"[fused] main_nerf -O --steps_per_dispatch {k} --iters {FUSED_ITERS}: {steps} steps, "
+              f"{o['ms']:.2f} ms/step ({train_s:.2f} s of training, of which {grid_s[1]} occupancy updates "
+              f"{grid_s[0]:.2f} s: {o['steps_ms']:.2f} ms/step without them; {wall:.2f} s with loading and the eval), "
+              f"{o['graphs'][0]} graphs captured, {o['graphs'][1]} replays; loss first {FUSED_K} steps {first:.5f}, "
+              f"last {FUSED_K} {last:.5f}; val PSNR {o['psnr']:.3f} dB; launches {o['launches']} "
+              f"({o['rounds']} eval rounds) ({smi})")
+        n = o["launches"]
+        if n["hashgrid_table_grad"] != steps or n["composite_rays_fused_backward"] != steps \
+                or n["march_rays_skip"] != steps + o["rounds"]:
+            raise AssertionError(f"[fused] --steps_per_dispatch {k}: launches {n} in {steps} steps and "
+                                 f"{o['rounds']} eval rounds")
+        if not (np.isfinite(losses).all() and last < 0.5 * first):
+            raise AssertionError(f"[fused] --steps_per_dispatch {k}: the loss did not halve ({first} -> {last})")
+        if k > 1 and not o["graphs"][1] > 0:
+            raise AssertionError(f"[fused] --steps_per_dispatch {k}: no graph replayed")
+    rel = float(np.abs(out[FUSED_K]["losses"][:FUSED_K] - out[1]["losses"][:FUSED_K]).max()
+                / np.abs(out[1]["losses"][:FUSED_K]).max())
+    print(f"[fused] main_nerf -O: fused {out[FUSED_K]['ms']:.2f} ms/step against {out[1]['ms']:.2f} per step "
+          f"({out[1]['ms'] / out[FUSED_K]['ms']:.2f}x; without the occupancy updates {out[FUSED_K]['steps_ms']:.2f} "
+          f"against {out[1]['steps_ms']:.2f}); first chunk's losses rel {rel:.3g} (limit {FUSED_LOSS_REL})")
+    if not rel <= FUSED_LOSS_REL:
+        raise AssertionError(f"[fused] main_nerf -O: the first chunk's losses differ by {rel} (relative)")
+
+    from focnerf_tpu_torch.data.provider import DatasetOptions, NeRFDataset
+
+    vds = NeRFDataset(DatasetOptions(path=scene, scale=parse_options(["x"]).scale), split="train", device=dev)
+    imgs = _rgb_on_white(vds)
+    vox = {}
+    for k in (1, FUSED_VOXEL_K):
+        torch.cuda.synchronize()
+        _, info = fit_voxels(vds.poses, imgs, vds.intrinsics, resolution=VOXEL_RES, iters=FUSED_VOXEL_ITERS,
+                             steps_per_dispatch=k, device=dev)
+        vox[k] = info
+    m1, mk = vox[1]["step_mse"], vox[FUSED_VOXEL_K]["step_mse"]
+    vrel = float(np.abs(mk[:FUSED_VOXEL_K] - m1[:FUSED_VOXEL_K]).max() / np.abs(m1[:FUSED_VOXEL_K]).max())
+    print(f"[fused] dense voxel {VOXEL_RES}^3 (main_voxel's fit_voxels, remat on), {FUSED_VOXEL_ITERS} steps: "
+          f"steps_per_dispatch {FUSED_VOXEL_K} {vox[FUSED_VOXEL_K]['seconds'] / FUSED_VOXEL_ITERS * 1e3:.2f} ms/step "
+          f"against {vox[1]['seconds'] / FUSED_VOXEL_ITERS * 1e3:.2f} per step (captures and the GT pre-warps "
+          f"included); first chunk's mse rel {vrel:.3g} (limit {FUSED_LOSS_REL}), last mse {mk[-1]:.5f} vs "
+          f"{m1[-1]:.5f} ({smi})")
+    if not (np.isfinite(mk).all() and vrel <= FUSED_LOSS_REL):
+        raise AssertionError(f"[fused] dense voxel: the fused chunk's mse {mk} vs per-step {m1}")
+    del vds, imgs
+    return out[FUSED_K]["launches"]
 
 
 def phase_reference(params, cfg, bits):
@@ -1545,8 +1840,10 @@ def phase_train_reference(trainer, ds):
             else:
                 loss, _ = occupancy_loss(params, cfg, tb, to(skip), td, **kw)
             loss.backward()
+            walks = int(kw.get("skip_field", False))  # the skip walk's kernel, once a march
             if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
-                                                         composite_rays_fused_backward=1, hashgrid_table_grad=1):
+                                                         composite_rays_fused_backward=1, hashgrid_table_grad=1,
+                                                         march_rays_skip=walks):
                 raise AssertionError(f"reference {label} on the card launched {read_counts()}")
             out[where] = (float(loss.detach()), [p.grad.cpu() for p in param_leaves(params)])
         (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
@@ -1658,7 +1955,7 @@ def phase_uniform_train(work: str, dev, smi: str):
           f"{float(em.mean()):.4f}); mesh {faces} faces at density {trainer.density_thresh} (max density on a 64^3 "
           f"grid {sigma_max:.2f}); launches {launches}")
     want = dict(composite_rays_fused=steps + eval_chunks, composite_rays_resume=0,
-                composite_rays_fused_backward=steps, hashgrid_table_grad=steps)
+                composite_rays_fused_backward=steps, hashgrid_table_grad=steps, march_rays_skip=0)
     if launches != want:
         raise AssertionError(f"uniform training launched {launches}, want {want}")
     if steps != UNIFORM_ITERS or not np.isfinite(losses).all() or not last < 0.5 * first:
@@ -1843,7 +2140,7 @@ def phase_composition(work: str, dev, smi: str):
     root, scene = compose_layout(work, parse_options([work]).scale)
     chunks = math.ceil(RES * RES / CHUNK)
     want = dict(composite_rays_fused=chunks * VAL_VIEWS, composite_rays_resume=0, composite_rays_fused_backward=0,
-                hashgrid_table_grad=0)
+                hashgrid_table_grad=0, march_rays_skip=0)
     runs, results = {}, {}
     for name, mod, edit in (("combined", combined, []),
                             ("editable", editable, ["--edit_object", SECOND, "--offset_x", "0.3"])):
@@ -2393,8 +2690,10 @@ def phase_voxel(work: str, dev, smi: str) -> dict:
     # steps at 256^3 (PERF.md §6); the c2f ladder reaches the gate in them
     ladder = _c2f_stage_plan(VOXEL_RES, DENSE_C2F, VOXEL_ITERS)
     for tag, name, extra, final in (
-            (f"dense {VOXEL_RES}^3 (--voxel_c2f {DENSE_C2F}: {', '.join(str(r) for r, _ in ladder)})", "dense",
-             ["--bake_res", str(VOXEL_RES), "--voxel_c2f", str(DENSE_C2F)], ladder[-1][1]),
+            (f"dense {VOXEL_RES}^3 (--voxel_c2f {DENSE_C2F}: {', '.join(str(r) for r, _ in ladder)}; "
+             f"--steps_per_dispatch {FUSED_VOXEL_K})", "dense",
+             ["--bake_res", str(VOXEL_RES), "--voxel_c2f", str(DENSE_C2F), "--steps_per_dispatch",
+              str(FUSED_VOXEL_K)], ladder[-1][1]),
             (f"VM rank 16 at {VM_RES}^3, --bake_quantize", "vm",
              ["--bake_res", str(VM_RES), "--voxel_vm", "16", "--bake_quantize", "--iters", str(VM_ITERS)], 0)):
         ws = os.path.join(work, f"voxel_{name}")
@@ -2736,6 +3035,8 @@ def phase_dnerf(work: str, dev, smi: str):
         raise AssertionError(f"D-NeRF backward kernels launched {launches}, want once per step ({steps})")
     if launches["composite_rays_fused"] < steps:
         raise AssertionError(f"D-NeRF composite forward launched {launches} times in {steps} steps")
+    if launches["march_rays_skip"] < steps:  # once a step, and once a chunk of the eval's views
+        raise AssertionError(f"D-NeRF's skip walk launched {launches['march_rays_skip']} times in {steps} steps")
     if steps != DNERF_ITERS or not np.isfinite(losses).all() or not last < 0.5 * first:
         raise AssertionError(f"D-NeRF training did not learn: {steps} steps, loss {first} -> {last}")
     if not psnr >= DNERF_PSNR:
@@ -2881,6 +3182,31 @@ def dnerf_reference_batch(seed: int, t: float, n: int = 512):
         "pixels": torch.from_numpy(rng.uniform(0, 1, (n, 4)).astype(np.float32)),
         "time": torch.tensor(t),
     }
+
+
+def phase_march_dnerf(trainer, dev) -> float:
+    """``[kernel-march]`` on D-NeRF's time grid: the kernel against the plain
+    walk on the trained field's skip field of the slots at t = 0.25 and
+    0.75, 4096 jittered rays at the training slab, as the D-NeRF step
+    marches. Returns the largest |ts| difference (0: equal)."""
+    import torch
+
+    from focnerf_tpu_torch.core.geometry import near_far_from_aabb
+    from focnerf_tpu_torch.render.renderer import default_aabb
+
+    errs = []
+    for seed, t in ((21, 0.25), (22, 0.75)):
+        _, b = dnerf_reference_batch(seed, t, n=CHUNK)
+        b = {k: v.to(dev) for k, v in b.items()}
+        skip = trainer._occ_bits_for_batch(b)
+        o, d = b["rays_o"], b["rays_d"]
+        near, far = near_far_from_aabb(o, d, default_aabb(trainer.cfg, dev), trainer.min_near)
+        noise = torch.rand(CHUNK, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+        errs.append(march_check(f"D-NeRF time grid, t = {t} (slot {int(b['time'] * trainer.time_slots)} of "
+                                f"{trainer.time_slots}), jittered", o, d, near, far, skip,
+                                bound=trainer.cfg.bound, dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps,
+                                slab=trainer.train_slab, noise=noise)["err"])
+    return max(errs)
 
 
 def dnerf_step_card_vs_cpu(params0, cfg, batch, draws, kw, skip=None, unmasked=False) -> dict:
@@ -3034,9 +3360,9 @@ def phase_dnerf_reference(trainer, dev):
         seeded = init_dnerf_params(torch.Generator().manual_seed(1), vcfg, "cpu")
         seeded["grid"][: vcfg.field_spec.offsets[8]] *= 1e3
         cases[f"{variant} -O step (seeded, levels 0-7 U(-0.1, 0.1))"] = (vcfg, seeded, occ_kw)
-    want = dict(composite_rays_fused=1, composite_rays_resume=0, composite_rays_fused_backward=1,
-                hashgrid_table_grad=1)
     for label, (cfg, params0, kw) in cases.items():
+        want = dict(composite_rays_fused=1, composite_rays_resume=0, composite_rays_fused_backward=1,
+                    hashgrid_table_grad=1, march_rays_skip=0 if "num_steps" in kw else 1)
         draws = dnerf_step_draws(torch.Generator().manual_seed(3), n, "cpu", num_steps=kw.get("num_steps", 0))
         r = dnerf_step_card_vs_cpu(params0, cfg, batch, draws, kw, skip)
         m = r["masked"]
@@ -3798,7 +4124,8 @@ def phase_clip(work: str, dev, smi: str, ds):
         grads = [p.grad.cpu() for p in param_leaves(params)]
         seconds[where] = time.time() - t0
         if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
-                                                     composite_rays_fused_backward=1, hashgrid_table_grad=1):
+                                                     composite_rays_fused_backward=1, hashgrid_table_grad=1,
+                                                     march_rays_skip=0):
             raise AssertionError(f"[clip] the reference CLIP step on the card launched {read_counts()}")
         out[where] = (float(loss.detach()), grads)
     (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
@@ -4341,13 +4668,18 @@ def main() -> int:
     dev = torch.device("cuda")
     params, cfg, bits = phase("serving", phase_serving, work, dev)
     launches, trainer = phase("training", phase_train, work, dev)
-    phase("eval renderers", phase_eval_renderers, trainer, train_dataset(os.path.join(work, "train_scene"), dev, "val"))
     ds = train_dataset(os.path.join(work, "train_scene"), dev)
+    val_ds = train_dataset(os.path.join(work, "train_scene"), dev, "val")
+    march_entry = phase("march kernel", phase_march_kernel, trainer, ds, val_ds, dev)
+    kernels.append(march_entry)
+    phase("eval renderers", phase_eval_renderers, trainer, val_ds)
+    del val_ds
     phase("train profile", phase_train_profile, trainer, ds, dev)
     phase("backward mask", phase_backward_mask, trainer, ds, dev)
     phase("render reference", phase_reference, params, cfg, bits)
     phase("iterative reference", phase_iterative_reference, trainer)
     phase("train reference", phase_train_reference, trainer, ds)
+    fused_launches = phase("fused", phase_fused, work, dev, smi, ds)
     uniform_launches = phase("uniform training", phase_uniform_train, work, dev, smi)
     _, o2_launches = phase("second object", phase_second_object, work, dev)
     composed, per_sample, root, scene = phase("composition", phase_composition, work, dev, smi)
@@ -4363,6 +4695,8 @@ def main() -> int:
     voxel_launches = phase("voxel", phase_voxel, work, dev, smi)
     phase("voxel profile", phase_voxel_profile, work, dev, smi)
     dnerf_launches, dnerf_trainer = phase("dnerf", phase_dnerf, work, dev, smi)
+    march_entry["max_abs_err"] = max(march_entry["max_abs_err"],
+                                     phase("march kernel (dnerf)", phase_march_dnerf, dnerf_trainer, dev))
     phase("dnerf reference", phase_dnerf_reference, dnerf_trainer, dev)
     del dnerf_trainer
     phase("dnerf variants", phase_dnerf_variants, work, dev, smi)
@@ -4380,7 +4714,8 @@ def main() -> int:
              "launches_voxel": voxel_launches[k["name"]], "launches_uniform": uniform_launches[k["name"]],
              "launches_o2": o2_launches[k["name"]], "launches_dnerf": dnerf_launches[k["name"]],
              "launches_viewer": viewer_launches[k["name"]], "launches_no_preload": no_preload_launches[k["name"]],
-             "launches_clip": clip_launches[k["name"]], "launches_parallel": parallel_launches[k["name"]]}
+             "launches_clip": clip_launches[k["name"]], "launches_parallel": parallel_launches[k["name"]],
+             "launches_fused": fused_launches[k["name"]]}
             for k in kernels]
     print(f"[device] nvidia-smi: {smi}")
     print(json.dumps({"kernels": line}))

@@ -30,7 +30,10 @@ process per device, launched by torchrun (without it: one rank):
 Rank 0 alone writes the volume, the mesh and the log. ``--voxel_dp``
 without ``--voxel_sp`` is ignored, as in JAX (one device, and one line says
 so); ``--voxel_sp --voxel_kplanes`` is refused (not ported yet).
-``--steps_per_dispatch K`` runs JAX's update sequence one step at a time.
+``--steps_per_dispatch K`` runs JAX's update sequence in chunks of K steps
+(``train/voxel.py::_fit_field_loop``; on the card each shear-warp
+variant's step is a CUDA graph replayed in schedule order); as in JAX,
+``--voxel_sp`` does not fuse.
 """
 
 from __future__ import annotations

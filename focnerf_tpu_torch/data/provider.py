@@ -7,8 +7,9 @@ frames by path), intrinsics from fl_x/fl_y or camera angles, ``eval_view``
 and, for training, ``train_batch``: the images, masks and object features
 are preloaded on the device and a batch (one random view, ``num_rays``
 pixels drawn uniformly, as ``patch_size`` patches, or by the view's error
-map, their rays and GT) is gathered there from a ``torch.Generator``, as
-``make_batch_assemble`` does. With ``error_map`` the train split keeps the
+map, their rays and GT) is gathered there by ``make_batch_assemble`` from
+the draws ``batch_draws`` makes with a ``torch.Generator``; the fused K-step
+chunk stages K steps' draws and runs the same assembler. With ``error_map`` the train split keeps the
 per-view map ``error_map`` [n_views, 128 * 128], filled with 0.1, which the
 trainer updates after every step. With ``host_pipeline`` (``--no-preload``,
 JAX's :267-288, :376-410) the train split stays on the host as a uint8
@@ -33,6 +34,39 @@ import torch
 from focnerf_tpu_torch.core.camera import nerf_matrix_to_ngp, rand_poses
 from focnerf_tpu_torch.core.rays import ERROR_MAP_RES, get_rays, index_draws, sample_ray_indices
 from focnerf_tpu_torch.data.png import read_image
+
+
+def make_batch_assemble(H: int, W: int, num_rays: int, intrinsics, patch_size: int = 1):
+    """The on-device batch assembler (JAX's ``make_batch_assemble``):
+    ``assemble(draws, poses, images, masks, obj_feats, error_map)`` -> dict
+    (rays_o, rays_d [N, 3], pixels [N, C] f32, ray_mask [N] bool when
+    ``masks`` is given, obj_feat [F] when ``obj_feats`` is, view, and
+    inds_coarse [N] with an error map). ``draws`` are ``batch_draws``'s
+    tensors (the view [1] and the index draws); the error map is read at
+    the view's row. No host sync, no data-dependent shape: a CUDA graph
+    holds it."""
+
+    def assemble(draws, poses, images, masks, obj_feats, error_map):
+        view = draws["view"]
+        em = None if error_map is None else error_map.index_select(0, view)[0]
+        inds, inds_coarse = sample_ray_indices(H, W, num_rays, draws, error_map=em, patch_size=patch_size)
+        flat = view * (H * W) + inds  # rows of the [V * H * W] pixel stack
+        rays = get_rays(poses.index_select(0, view)[0], intrinsics, H, W, inds=inds, device=poses.device)
+        batch = {
+            "rays_o": rays["rays_o"],
+            "rays_d": rays["rays_d"],
+            "pixels": images.reshape(-1, images.shape[-1])[flat].float(),
+            "view": view[0],
+        }
+        if masks is not None:
+            batch["ray_mask"] = masks.reshape(-1)[flat]
+        if obj_feats is not None:
+            batch["obj_feat"] = obj_feats.index_select(0, view)[0]
+        if inds_coarse is not None:
+            batch["inds_coarse"] = inds_coarse
+        return batch
+
+    return assemble
 
 
 @dataclasses.dataclass
@@ -255,13 +289,33 @@ class NeRFDataset:
         self.masks = np.stack(msks)  # [V, H, W] bool
         return masked
 
+    def batch_draws(self, generator: torch.Generator) -> dict:
+        """The random numbers of one ``train_batch`` from ``generator``: the
+        view ``view`` [1], then ``index_draws``'s (the pixels, patch
+        corners or error-map draws)."""
+        draws = {"view": torch.randint(0, self.n_views, (1,), generator=generator, device=self.device)}
+        draws.update(index_draws(generator, self.H, self.W, self.opt.num_rays,
+                                 error_map=self.error_map is not None,
+                                 patch_size=self.opt.patch_size, device=self.device))
+        return draws
+
+    def assemble_fn(self):
+        """The batch assembler of this split's shapes, shared by the
+        per-step path and the fused K-step chunk (train/fused.py), so both
+        make the same batches: ``make_batch_assemble``'s function."""
+        return make_batch_assemble(self.H, self.W, self.opt.num_rays, self.intrinsics,
+                                   patch_size=self.opt.patch_size)
+
+    def fused_batch_inputs(self):
+        """The device tensors the assembler reads, in its order: poses,
+        images, masks (or None), object features (or None)."""
+        return (self.poses_dev, self.images, self.masks_dev, self.obj_feats_dev)
+
     def train_batch(self, generator: torch.Generator, draws: Optional[dict] = None) -> dict:
         """One training batch drawn from ``generator`` (on the dataset's
         device): a random view and ``num_rays`` pixels of it (uniform, in
-        patches, or by the view's error map) -> dict(rays_o, rays_d [N, 3],
-        pixels [N, C] f32, ray_mask [N] bool when the split has masks,
-        obj_feat [F] when it has features, view, and inds_coarse [N] with an
-        error map). ``draws``: {"view": [1], then ``index_draws``'s} instead
+        patches, or by the view's error map), their rays and GT ->
+        ``make_batch_assemble``'s dict. ``draws``: ``batch_draws``'s, instead
         of drawing them. Everything stays on the device: no host sync."""
         if self.images_host is not None:
             if draws is not None:
@@ -270,30 +324,8 @@ class NeRFDataset:
         if self.images is None:
             raise ValueError(f"split {self.split!r} has no images to train on")
         if draws is None:
-            draws = {"view": torch.randint(0, self.n_views, (1,), generator=generator, device=self.device)}
-            draws.update(index_draws(generator, self.H, self.W, self.opt.num_rays,
-                                     error_map=self.error_map is not None,
-                                     patch_size=self.opt.patch_size, device=self.device))
-        view = draws["view"]
-        em = None if self.error_map is None else self.error_map.index_select(0, view)[0]
-        inds, inds_coarse = sample_ray_indices(self.H, self.W, self.opt.num_rays, draws, error_map=em,
-                                               patch_size=self.opt.patch_size)
-        flat = view * (self.H * self.W) + inds  # rows of the [V * H * W] pixel stack
-        rays = get_rays(self.poses_dev.index_select(0, view)[0], self.intrinsics, self.H, self.W,
-                        inds=inds, device=self.device)
-        batch = {
-            "rays_o": rays["rays_o"],
-            "rays_d": rays["rays_d"],
-            "pixels": self.images.reshape(-1, self.images.shape[-1])[flat].float(),
-            "view": view[0],
-        }
-        if self.masks_dev is not None:
-            batch["ray_mask"] = self.masks_dev.reshape(-1)[flat]
-        if self.obj_feats_dev is not None:
-            batch["obj_feat"] = self.obj_feats_dev.index_select(0, view)[0]
-        if inds_coarse is not None:
-            batch["inds_coarse"] = inds_coarse
-        return batch
+            draws = self.batch_draws(generator)
+        return self.assemble_fn()(draws, *self.fused_batch_inputs(), self.error_map)
 
     def _host_train_batch(self) -> dict:
         """One batch from the native loader (started at the first call, two

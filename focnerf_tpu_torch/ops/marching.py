@@ -12,7 +12,10 @@ dt_max)``:
   - ``march_rays_skip``: a sphere-trace walk over the skip field
     (``occupancy_skip_field``): sample in occupied cells, leap over empty
     space by whole recurrence steps, until every ray has its slab or has
-    left the volume.
+    left the volume. On CPU tensors it is the plain walk,
+    ``march_skip_plain``; on CUDA tensors it launches ``csrc/march_skip.cu``
+    (one thread walks one ray to its end, no host read: a CUDA graph holds
+    it) or raises. The kernel's samples equal the plain walk's bit for bit.
 
 Training jitters each ray's start: ``noise`` [N] uniforms move t0 by
 ``noise * dt(t0)``, as the JAX package's ``perturb`` does with its own draw.
@@ -21,8 +24,10 @@ Training jitters each ray's start: ``noise`` [N] uniforms move t0 by
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+import ctypes
+from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 SQRT3 = math.sqrt(3.0)
@@ -33,7 +38,10 @@ class MarchResult(NamedTuple):
     dts: torch.Tensor  # [N, K] step sizes
     valid: torch.Tensor  # [N, K] bool
     count: torch.Tensor  # [N] number of valid samples (<= K)
-    iters: int = 0  # walk iterations run (march_rays_skip)
+    # walk iterations (march_rays_skip): the plain walk's global count, a
+    # host int; the kernel's longest ray, an int32 device scalar
+    iters: Union[int, torch.Tensor] = 0
+    ray_iters: Optional[torch.Tensor] = None  # [N] int32 iterations per ray (the kernel)
 
 
 def candidate_ts(t0: torch.Tensor, num: int, dt_min: float, dt_max: float, dt_gamma: float):
@@ -157,7 +165,114 @@ def march_rays_skip(
     noise: Optional[torch.Tensor] = None,
 ) -> MarchResult:
     """Sphere-tracing marcher over the skip field (same contract as
-    ``march_rays``).
+    ``march_rays``; the walk is ``march_skip_plain``'s).
+
+    CPU tensors take the plain walk. CUDA tensors take the kernel, one launch
+    counted in ``march_rays_skip.launches``: the start ``t0`` is the plain
+    walk's torch expression, then one thread walks each ray to its end, so
+    ``ts``, ``dts``, ``valid`` and ``count`` equal the plain walk's bit for
+    bit. Its ``iters`` is the longest ray's iteration count, an int32 device
+    scalar read by nobody inside the walk; the plain walk's is a host int
+    that counts in steps of 4 (its host check), so the two differ by up to 3.
+    """
+    if not rays_o.is_cuda:
+        if rays_o.device.type != "cpu":
+            raise ValueError(f"march_rays_skip: unsupported device {rays_o.device}")
+        return march_skip_plain(rays_o, rays_d, nears, fars, occ_skip, bound=bound, dt_gamma=dt_gamma,
+                                max_steps=max_steps, slab=slab, grid_size=grid_size, max_iters=max_iters,
+                                noise=noise)
+    cascades = occ_skip.shape[0]
+    dt_min = 2.0 * SQRT3 / max_steps
+    dt_max = 2.0 * SQRT3 * (2.0 ** (cascades - 1)) / grid_size
+    if max_iters <= 0:
+        max_iters = slab + 8 * grid_size
+    t0 = _jittered_start(nears.float(), noise, dt_gamma, dt_min, dt_max)
+    return _march_skip_launch(rays_o, rays_d, t0, fars, occ_skip, bound=bound, dt_gamma=dt_gamma,
+                              dt_min=dt_min, dt_max=dt_max, slab=slab, grid_size=grid_size,
+                              max_iters=max_iters)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _recip(x: float) -> float:
+    """The factor torch multiplies by where a CUDA tensor is divided by the
+    Python float ``x``: 1 / x in double, rounded to fp32 (not fp32(1) /
+    fp32(x): the two differ for x = log(1 + 1/128), measured on the card)."""
+    return float(np.float32(1.0 / x))
+
+
+def _march_skip_launch(rays_o, rays_d, t0, fars, occ_skip, *, bound: float, dt_gamma: float, dt_min: float,
+                       dt_max: float, slab: int, grid_size: int, max_iters: int) -> MarchResult:
+    """Checks the operands, then launches ``focnerf_march_skip`` on the
+    current stream. Every constant the plain walk takes from a Python float
+    is passed as torch rounds it (an fp32 value; for a divisor, ``_recip``)."""
+    from focnerf_tpu_torch.ops._build import load_library
+
+    n = rays_o.shape[0]
+    device = rays_o.device
+    cascades = occ_skip.shape[0]
+    # a camera's rays share one origin (an expanded, stride-0 view)
+    rays_o, rays_d, t0, fars = (t.contiguous() for t in (rays_o, rays_d, t0, fars))
+    for name, t, dtype, shape in (
+        ("rays_o", rays_o, torch.float32, (n, 3)),
+        ("rays_d", rays_d, torch.float32, (n, 3)),
+        ("t0", t0, torch.float32, (n,)),
+        ("fars", fars, torch.float32, (n,)),
+        ("occ_skip", occ_skip, torch.uint8, (cascades, grid_size**3)),
+    ):
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name}: need {dtype} on {device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {shape}, got {tuple(t.shape)}")
+    out_t = torch.empty((n, slab), dtype=torch.float32, device=device)
+    out_dt = torch.empty((n, slab), dtype=torch.float32, device=device)
+    valid = torch.empty((n, slab), dtype=torch.bool, device=device)
+    count = torch.empty((n,), dtype=torch.int64, device=device)
+    ray_iters = torch.empty((n,), dtype=torch.int32, device=device)
+    iters = torch.zeros((1,), dtype=torch.int32, device=device)
+    fn = load_library("march_skip").focnerf_march_skip
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 15 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 7)
+    geometric = dt_gamma > 0.0
+    err = fn(
+        rays_o.data_ptr(), rays_d.data_ptr(), t0.data_ptr(), fars.data_ptr(), occ_skip.data_ptr(),
+        _f32(bound), _f32(dt_gamma), _f32(dt_min), _f32(dt_max), _recip(grid_size), _recip(dt_min),
+        _recip(math.log(1.0 + dt_gamma)) if geometric else 0.0, _f32(1.0 + dt_gamma),
+        _f32(dt_min / dt_gamma) if geometric else 0.0, _f32(dt_max / dt_gamma) if geometric else 0.0,
+        float(grid_size), _f32(SQRT3), _f32(1e-3), _f32(1e-12), _f32(1e-6),
+        grid_size, cascades, slab, max_iters, int(geometric), n,
+        out_t.data_ptr(), out_dt.data_ptr(), valid.data_ptr(), count.data_ptr(), ray_iters.data_ptr(),
+        iters.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"skip-march kernel launch failed: cudaError {err}")
+    march_rays_skip.launches += 1
+    return MarchResult(ts=out_t, dts=out_dt, valid=valid, count=count, iters=iters[0], ray_iters=ray_iters)
+
+
+march_rays_skip.launches = 0
+
+
+def march_skip_plain(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    nears: torch.Tensor,
+    fars: torch.Tensor,
+    occ_skip: torch.Tensor,  # [CAS, H^3] uint8 skip codes (occupancy_skip_field)
+    *,
+    bound: float,
+    dt_gamma: float = 0.0,
+    max_steps: int = 1024,
+    slab: int = 128,
+    grid_size: int = 128,
+    max_iters: int = 0,
+    noise: Optional[torch.Tensor] = None,
+) -> MarchResult:
+    """The plain version of ``march_rays_skip``, on any device.
 
     Each iteration either samples (skip code 0: occupied cell, advance by
     the dt recurrence) or leaps over empty space (code v >= 1: past the cell

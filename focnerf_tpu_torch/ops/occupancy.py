@@ -19,7 +19,6 @@ import math
 from typing import Callable, Dict, NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 
 class OccupancyState(NamedTuple):
@@ -195,17 +194,28 @@ def occupancy_skip_field(occ_bits: torch.Tensor, grid_size: int = 128) -> torch.
     0 for an occupied cell; otherwise k + 1 for the largest k in {1, 2, 4,
     ..., H/2} with no occupied cell within L-inf distance k (1 when even
     k = 1 fails). Built by dilation doubling (B_2k = B_k + B_k), each
-    dilation three 1-D max-pools, exactly as the JAX package's
-    ``reduce_window`` rounds.
+    dilation three 1-D max-pools of the 0/1 field, exactly as the JAX
+    package's ``reduce_window`` rounds. A 1-D max-pool of radius r over a
+    0/1 field is "any occupied cell in the window [i - r, i + r], clipped
+    at the edges": a difference of prefix counts (the max-pool's result,
+    without its (2r + 1)-wide window per cell).
     """
     cas = occ_bits.shape[0]
     occ = occ_bits.reshape(1, cas, grid_size, grid_size, grid_size).float()
 
+    def max_pool_1d(v, dim, r):
+        n = v.shape[dim]
+        pad = list(v.shape)
+        pad[dim] = r
+        zeros = v.new_zeros(pad)
+        # v's window [i - r, i + r] is padded[i + 1 : i + 2r + 2]
+        padded = torch.cat([zeros, v.new_zeros(pad[:dim] + [1] + pad[dim + 1:]), v, zeros], dim)
+        counts = torch.cumsum(padded, dim, dtype=torch.int32)
+        return (counts.narrow(dim, 2 * r + 1, n) > counts.narrow(dim, 0, n)).to(v.dtype)
+
     def dilate(v, r):
         for axis in range(3):
-            size = [1, 1, 1]
-            size[axis] = 2 * r + 1
-            v = F.max_pool3d(v, size, stride=1, padding=[s // 2 for s in size])
+            v = max_pool_1d(v, 2 + axis, r)
         return v
 
     skip = torch.where(occ > 0, 0, 1).to(torch.uint8)

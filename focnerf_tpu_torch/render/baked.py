@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from focnerf_tpu_torch.ops.hashgrid import _device_tuple
+
 
 class BakedVolume(NamedTuple):
     """Dense bake. ``rgba`` is [R, R, R, P+1]: P payload channels + raw sigma
@@ -364,7 +366,7 @@ def _grid_geometry(e_z, e_y, e_x, b: float, ri: int):
     """Intermediate-plane pixel grid: the volume footprint on z'=0 seen from
     the (permuted-coordinates) eye, fp32 0-d tensors. Returns (gy [ri], gx
     [ri], ymin, xmin, dy_i, dx_i)."""
-    corners = torch.tensor([-b, b], dtype=torch.float32, device=e_z.device)
+    corners = _device_tuple((-float(b), float(b)), torch.float32, e_z.device)  # no host copy: a CUDA graph holds it
     s_c = e_z / (e_z - corners)  # scale for the two extreme slices [2]
     uy = e_y + (corners[None, :] - e_y) * s_c[:, None]  # [2 slices, 2 corners]
     ux = e_x + (corners[None, :] - e_x) * s_c[:, None]
@@ -529,7 +531,10 @@ def _fold_blocks(
 
     for Vb, zb in zip(V_f2b, z_f2b):
         if remat:
-            od, C, D = torch.utils.checkpoint.checkpoint(block, Vb, zb, od, C, D, use_reentrant=False)
+            # the fold draws no random numbers: no RNG state to keep (its
+            # read would not hold inside a CUDA graph capture)
+            od, C, D = torch.utils.checkpoint.checkpoint(block, Vb, zb, od, C, D, use_reentrant=False,
+                                                         preserve_rng_state=False)
         else:
             od, C, D = block(Vb, zb, od, C, D)
 

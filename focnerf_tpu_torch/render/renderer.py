@@ -35,12 +35,15 @@ from focnerf_tpu_torch.models.nerf import (
     encode_objfeat,
 )
 from focnerf_tpu_torch.ops.composite import composite_rays_fused, composite_weights
+from focnerf_tpu_torch.ops.hashgrid import _device_tuple
 from focnerf_tpu_torch.ops.marching import march_rays, march_rays_skip
 
 
 def default_aabb(cfg: NeRFConfig, device) -> torch.Tensor:
-    b = cfg.bound
-    return torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32, device=device)
+    """The bound box [6] on ``device``, copied there once per (bound,
+    device): a copy inside a CUDA graph capture would sync. Read-only."""
+    b = float(cfg.bound)
+    return _device_tuple((-b, -b, -b, b, b, b), torch.float32, torch.device(device))
 
 
 def _aabb(cfg: NeRFConfig, aabb, device) -> torch.Tensor:

@@ -54,6 +54,10 @@ from focnerf_tpu_torch.train.trainer import Trainer
 
 
 class DNeRFTrainer(Trainer):
+    # its own step (per-slot skip fields, the time draws): per-step, as
+    # JAX's DNeRFTrainer, whose _build_steps never enables the fused chunk
+    _supports_fused = False
+
     def __init__(self, *args, time_slots: int = 64, **kw):
         self.time_slots = time_slots
         self._slot_cache = {}  # time slot -> its skip field, until the next refresh

@@ -160,13 +160,23 @@ def uniform_loss(
     return loss, {"per_ray_error": per_ray}
 
 
-def train_step(state: TrainState, batch: Dict, draws: Dict, *, cfg: NeRFConfig, **kw) -> Dict:
+def _apply(state: TrainState, hyper):
+    """The optimizer update: one whole step (``apply_gradients``), or with
+    ``hyper`` (``TrainState.hyper``'s factors, staged by the fused chunk)
+    only the device work, the host counters moving after the chunk."""
+    if hyper is None:
+        state.apply_gradients()
+    else:
+        state.update(hyper)
+
+
+def train_step(state: TrainState, batch: Dict, draws: Dict, *, cfg: NeRFConfig, hyper=None, **kw) -> Dict:
     """One uniform-sampling optimizer step on ``state`` (updated in place)
     -> metrics: ``loss`` (a device scalar) and ``per_ray_error``. ``kw`` as
-    ``uniform_loss``."""
+    ``uniform_loss``; ``hyper`` as ``_apply``."""
     loss, aux = uniform_loss(state.params, cfg, batch, draws, **kw)
     loss.backward()
-    state.apply_gradients()
+    _apply(state, hyper)
     return {"loss": loss.detach(), "per_ray_error": aux["per_ray_error"]}
 
 
@@ -219,15 +229,16 @@ def occupancy_loss(
 
 
 def train_step_occupancy(
-    state: TrainState, batch: Dict, occ: torch.Tensor, draws: Dict, *, cfg: NeRFConfig, **kw
+    state: TrainState, batch: Dict, occ: torch.Tensor, draws: Dict, *, cfg: NeRFConfig, hyper=None, **kw
 ) -> Dict:
     """One optimizer step on ``state`` (updated in place) -> metrics:
     ``loss`` (a device scalar: reading it syncs), ``per_ray_error``,
-    ``mean_samples``, and ``march_iters`` (a host int). ``kw`` as
-    ``occupancy_loss``."""
+    ``mean_samples``, and ``march_iters`` (the walk's iterations: a host
+    int from the plain walk, a device scalar from the kernel). ``kw`` as
+    ``occupancy_loss``; ``hyper`` as ``_apply``."""
     loss, aux = occupancy_loss(state.params, cfg, batch, occ, draws, **kw)
     loss.backward()
-    state.apply_gradients()
+    _apply(state, hyper)
     return {
         "loss": loss.detach(),
         "per_ray_error": aux["per_ray_error"],

@@ -22,8 +22,16 @@ and ``_mesh_density``.
 
 Every draw comes from one ``torch.Generator`` on the training device,
 seeded by ``seed``; the rand poses from a numpy generator seeded by ``seed
-+ 1``, as JAX's. ``steps_per_dispatch`` > 1 runs one step per dispatch (its
-fused form gives the same steps).
++ 1``, as JAX's.
+
+``steps_per_dispatch`` K > 1 is JAX's fused dispatch (:577-727): where a
+chunk of n in {K} and the powers of two below it fits before the epoch's
+end, the next occupancy tick and the next c2f stage (and starts on phase 0
+of ``grad_level_phases``), n steps run as one ``train/fused.py`` chunk:
+their draws are drawn first in the per-step loop's order, and on the card
+each step replays a CUDA graph. The chunk's steps are the per-step loop's.
+It stays per-step where JAX's does: ``rand_pose`` >= 0, no preloaded
+images (``--no-preload``), a subclass with its own step (D-NeRF).
 
 The CLIP rand-pose branch (:477-522, the reference's nerf/utils.py:796-838):
 with ``rand_pose`` 0 every step, with ``rand_pose`` N > 0 the steps with
@@ -76,7 +84,19 @@ from focnerf_tpu_torch.train.steps import (
 EVAL_RENDERERS = ("oneshot", "iter", "iter_dev")
 
 
+def _host_ints(values) -> List[int]:
+    """Host ints of a list of ints and int tensors (one sync for all)."""
+    tensors = [v.reshape(-1).to(torch.int64) for v in values if torch.is_tensor(v)]
+    read = iter(torch.cat(tensors).tolist() if tensors else ())
+    out: List[int] = []
+    for v in values:
+        out += [int(next(read)) for _ in range(v.numel())] if torch.is_tensor(v) else [int(v)]
+    return out
+
+
 class Trainer:
+    _supports_fused = True  # a subclass with its own step opts out (D-NeRF)
+
     def __init__(
         self,
         name: str,
@@ -174,7 +194,7 @@ class Trainer:
         self.last_eval_step = -1
         self.last_eval_results = None
         self.step_losses: List[float] = []  # every step's loss, read once per epoch
-        self.march_iters: List[int] = []  # every step's skip-walk iterations
+        self.march_iters: List[int] = []  # every occupancy step's walk iterations, read once per epoch
         self.rand_pose = rand_pose
         self._clip_text = clip_text
         self._clip_loss = clip_loss_fn
@@ -183,11 +203,11 @@ class Trainer:
         self.clip_steps: List[int] = []  # the global steps that were CLIP steps
         self._np_rng = np.random.default_rng(seed + 1)
 
+        self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        self._fused_cache: dict = {}
+
         os.makedirs(workspace, exist_ok=True)
         self.log_path = os.path.join(workspace, f"log_{name}.txt")
-        if steps_per_dispatch > 1:
-            self.log("[WARN] steps_per_dispatch > 1 (fused dispatch) is not ported; "
-                     "running one step per dispatch")
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._state_kw = dict(lr=lr, iters=iters, lr_net=lr_net, warmup=lr_warmup, grad_clip=grad_clip,
                               ema_decay=ema_decay)
@@ -301,6 +321,14 @@ class Trainer:
         encodes its first ``active`` levels; with ``grad_level_phases`` P > 1
         step k trains the table rows of the active levels l with l % P ==
         k % P. Eval and the occupancy update keep the full ``self.cfg``."""
+        cfgs, (P, active) = self._cfg_phase_list()
+        phase = self.global_step % P
+        return cfgs[phase], (phase, active)
+
+    def _cfg_phase_list(self):
+        """The configs of the gradient phases at this step's c2f stage ->
+        ([cfg of phase 0, ..., P - 1], (P, active levels)); P = 1 without
+        phases (JAX's ``_cfg_phase_list``)."""
         cfg, active = self.cfg, 0
         for end, lv in self.c2f_stages:
             if self.global_step < end:
@@ -310,10 +338,105 @@ class Trainer:
             cfg = dataclasses.replace(cfg, active_levels=active)
         P = self.grad_level_phases
         if P <= 1:
-            return cfg, (0, active)
-        phase = self.global_step % P
-        levels = tuple(lvl for lvl in range(active or cfg.num_levels) if lvl % P == phase)
-        return dataclasses.replace(cfg, grad_levels=levels), (phase, active)
+            return [cfg], (1, active)
+        n_lv = active or cfg.num_levels
+        return [dataclasses.replace(cfg, grad_levels=tuple(lvl for lvl in range(n_lv) if lvl % P == phase))
+                for phase in range(P)], (P, active)
+
+    def _fused_steps_possible(self, train_dataset, remaining: int) -> int:
+        """How many steps the next dispatch may fuse (1 = the per-step path):
+        a chunk of n in {K} and the powers of two below K, at most the
+        epoch's ``remaining`` steps, never across the next occupancy tick or
+        c2f stage boundary, a multiple of P starting on phase 0 (JAX's
+        ``_fused_steps_possible``)."""
+        K = self.steps_per_dispatch
+        if (
+            K <= 1
+            or not self._supports_fused
+            or self.rand_pose >= 0
+            or getattr(train_dataset, "images", None) is None
+        ):
+            return 1
+        gs = self.global_step
+        cap = remaining
+        if self.occupancy is not None:
+            # the tick at gs fired before this chunk; the next is at the next
+            # multiple of the interval
+            iv = self.update_extra_interval
+            next_due = ((gs // iv) + 1) * iv if gs % iv else gs + iv
+            cap = min(cap, next_due - gs)
+        for end, _lv in self.c2f_stages:
+            if gs < end:
+                cap = min(cap, end - gs)
+                break
+        P = max(1, self.grad_level_phases)
+        for n in sorted({K} | {1 << i for i in range(K.bit_length())}, reverse=True):
+            if n <= 1:
+                break
+            if n <= cap and n % P == 0 and (P == 1 or gs % P == 0):
+                return n
+        return 1
+
+    def _fused_chunk_fn(self, train_dataset):
+        """The chunk of this stage, slab and dataset, made at its first use.
+        A chunk of another stage or slab is dropped with its graphs."""
+        from focnerf_tpu_torch.train.fused import make_fused_chunk
+
+        cfgs, (P, active) = self._cfg_phase_list()
+        has_em = train_dataset.error_map is not None
+        key = (self.steps_per_dispatch, self.active_slab if self.use_occupancy else -1, P, active, has_em,
+               train_dataset.masks_dev is not None, train_dataset.obj_feats_dev is not None, id(train_dataset))
+        chunk = self._fused_cache.get(key)
+        if chunk is not None:
+            return chunk
+        self._fused_cache.clear()
+        common = dict(min_near=self.min_near, color_space=self.color_space, alpha_weight=self.alpha_loss,
+                      tv_weight=self.tv_weight)
+
+        def step_fn(cfg):
+            if self.occupancy is not None:
+                kw = dict(common, dt_gamma=self.dt_gamma, max_steps=self.max_steps, slab=self.active_slab,
+                          skip_field=self.skip_march)
+                return lambda state, batch, occ, draws, hyper: train_step_occupancy(
+                    state, batch, occ, draws, cfg=cfg, hyper=hyper, **kw)
+            kw = dict(common, num_steps=self.num_steps, upsample_steps=self.upsample_steps)
+            return lambda state, batch, occ, draws, hyper: train_step(
+                state, batch, draws, cfg=cfg, hyper=hyper, **kw)
+
+        chunk = make_fused_chunk([step_fn(cfg) for cfg in cfgs], train_dataset.assemble_fn(),
+                                 train_dataset.fused_batch_inputs(), K=self.steps_per_dispatch,
+                                 device=self.device, has_error_map=has_em)
+        self._fused_cache[key] = chunk
+        return chunk
+
+    def _step_draws(self, cfg, n_rays: int):
+        """One step's draws from the generator, as ``_step`` draws them."""
+        tv = self.tv_weight > 0.0
+        if self.occupancy is not None:
+            return step_draws(self.generator, cfg, n_rays, self.active_slab, self.device, tv=tv)
+        return uniform_step_draws(self.generator, self.cfg, n_rays, self.num_steps, self.upsample_steps,
+                                  self.device, tv=tv)
+
+    def _run_fused_chunk(self, train_dataset, n: int):
+        """Run n steps as one fused chunk -> (losses [n], march_iters [n]),
+        on the device."""
+        chunk = self._fused_chunk_fn(train_dataset)
+        cfgs, (P, _) = self._cfg_phase_list()
+        n_rays = min(train_dataset.opt.num_rays, train_dataset.H * train_dataset.W)
+        draws, hypers = [], []
+        for k in range(n):  # the per-step loop's order: batch draws, then the step's
+            bd = train_dataset.batch_draws(self.generator)
+            draws.append((bd, self._step_draws(cfgs[k % P], n_rays)))
+            hypers.append(self.state.hyper(k))
+        occ = self._occ_bits_for_batch(None) if self.occupancy is not None else None
+        losses, msamples, iters = chunk.run(self.state, train_dataset.error_map, draws, hypers, occ)
+        self.state.advance(n)
+        self.global_step += n
+        if self.occupancy is not None:
+            # the per-step loop keeps the LAST step's mean samples; so does the
+            # chunk, so the slab buckets move alike
+            self._last_mean_samples = msamples[-1]
+        return losses, iters
 
     def _maybe_clip_step(self, train_dataset):
         """A CLIP rand-pose step when one is scheduled -> its metrics, else None."""
@@ -360,13 +483,13 @@ class Trainer:
         """One optimizer step on ``batch`` -> its metrics: through the
         occupancy march when the trainer has the grid, else through uniform
         samples."""
-        n, tv = batch["rays_o"].shape[0], self.tv_weight > 0.0
+        n = batch["rays_o"].shape[0]
         common = dict(min_near=self.min_near, color_space=self.color_space, alpha_weight=self.alpha_loss,
                       tv_weight=self.tv_weight)
         if self.occupancy is not None:
             cfg, _ = self._phase_cfg()
             slab = self.active_slab
-            draws = step_draws(self.generator, cfg, n, slab, self.device, tv=tv)
+            draws = self._step_draws(cfg, n)
             metrics = train_step_occupancy(
                 self.state, batch, self._occ_bits_for_batch(batch), draws, cfg=cfg,
                 dt_gamma=self.dt_gamma, max_steps=self.max_steps, slab=slab,
@@ -374,8 +497,7 @@ class Trainer:
             )
             self._last_mean_samples = metrics["mean_samples"]
         else:
-            draws = uniform_step_draws(self.generator, self.cfg, n, self.num_steps, self.upsample_steps,
-                                       self.device, tv=tv)
+            draws = self._step_draws(self.cfg, n)
             metrics = train_step(self.state, batch, draws, cfg=self.cfg, num_steps=self.num_steps,
                                  upsample_steps=self.upsample_steps, **common)
         return metrics
@@ -405,16 +527,30 @@ class Trainer:
         for _ep in range(max_epochs):
             self.epoch += 1
             t0 = time.time()
-            losses = []
-            for _ in range(steps_per_epoch):
+            losses, iters = [], []
+            done = 0
+            while done < steps_per_epoch:
+                n = self._fused_steps_possible(train_dataset, steps_per_epoch - done)
+                if n > 1:
+                    # one chunk for n steps (train/fused.py): batch assembly,
+                    # the steps and the error-map EMA, graph-replayed on the card
+                    self._maybe_update_occupancy()
+                    chunk_losses, chunk_iters = self._run_fused_chunk(train_dataset, n)
+                    losses.append(chunk_losses)
+                    if self.occupancy is not None:
+                        iters.append(chunk_iters)
+                    done += n
+                    continue
                 batch, metrics = self._train_step(train_dataset)
-                losses.append(metrics["loss"])
+                losses.append(metrics["loss"].reshape(1))
                 if "march_iters" in metrics:
-                    self.march_iters.append(metrics["march_iters"])
+                    iters.append(metrics["march_iters"])
                 if batch is not None and getattr(train_dataset, "error_map", None) is not None \
                         and "inds_coarse" in batch:
                     self._error_map_step(train_dataset, batch, metrics)
-            epoch_losses = torch.stack(losses).tolist()  # one sync per epoch
+                done += 1
+            epoch_losses = torch.cat(losses).tolist()  # one sync per epoch
+            self.march_iters += _host_ints(iters)
             self.step_losses += epoch_losses
             self.log(f"[epoch {self.epoch}] loss={np.mean(epoch_losses):.6f} "
                      f"steps={self.global_step} time={time.time() - t0:.1f}s")

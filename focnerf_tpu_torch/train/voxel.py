@@ -98,12 +98,13 @@ def _rebuild(params, leaves):
 class FieldState:
     """A family's trainable tensors (copies of ``params``' leaves) and their
     ``torch.optim.Adam`` with optax.adam's settings (eps 1e-8, no weight
-    decay); the optimizer updates the leaves in place."""
+    decay); the optimizer updates the leaves in place. ``capturable`` keeps
+    Adam's step count on the device, as a CUDA graph needs."""
 
-    def __init__(self, params, lr: float):
+    def __init__(self, params, lr: float, capturable: bool = False):
         self._template = params
         self.leaves = [p.detach().clone().requires_grad_(True) for p in _leaves(params)]
-        self.optimizer = torch.optim.Adam(self.leaves, lr=lr, eps=1e-8)
+        self.optimizer = torch.optim.Adam(self.leaves, lr=lr, eps=1e-8, capturable=capturable)
 
     @property
     def params(self):
@@ -197,16 +198,24 @@ def _fit_field_loop(
     params' device: one loss per (axis, flip) variant, GTs pre-warped once
     per view (intermediate supervision), JAX's shuffled view order.
 
-    ``steps_per_dispatch`` > 1 is JAX's fused dispatch (a scan over the
-    same update sequence); the port runs that sequence step by step and
-    says so.
+    ``steps_per_dispatch`` K > 1 (with ``iters`` >= K) is JAX's fused
+    dispatch (a scan over a switch of the variants' steps): the same
+    schedule in chunks of K steps, each step reading its view from a
+    [K] buffer of view ids through a slot counter on the device
+    (train/fused.py's ``GraphedSteps``); on the card each (axis, flip)
+    variant's step is captured once into a CUDA graph and the chunk replays
+    them in schedule order. The views' targets are warped up front, the
+    view's time enters as a 0-d tensor, Adam is ``capturable``. On the CPU
+    the chunk is that loop and equals the per-step one bit for bit.
 
     Returns (params, info) with info = {"psnr" of the last step,
     "rays_per_sec" (supervised rays), "seconds", "step_mse" [iters]}."""
     from focnerf_tpu_torch.render.baked import warp_gt_to_intermediate
 
-    state = FieldState(params, lr)
-    device = state.leaves[0].device
+    K = max(1, int(steps_per_dispatch))
+    fused = K > 1 and iters >= K
+    device = _leaves(params)[0].device
+    state = FieldState(params, lr, capturable=fused and device.type == "cuda")
     V = len(poses)
     poses = np.asarray(poses, np.float32)
     gts = torch.as_tensor(images, dtype=torch.float32).to(device)
@@ -215,9 +224,6 @@ def _fit_field_loop(
     poses_dev = torch.as_tensor(poses, device=device)
     ri = resolution * intermediate_scale
     t_arr = np.zeros(V, np.float32) if times is None else np.asarray(times, np.float32)
-    if steps_per_dispatch > 1:
-        print(f"[{tag}] --steps_per_dispatch {steps_per_dispatch}: the port runs the same update "
-              "sequence one step at a time (no fused dispatch yet)", flush=True)
 
     optimizer = state.optimizer
     losses: Dict[Tuple[int, bool], object] = {}
@@ -235,20 +241,24 @@ def _fit_field_loop(
     order = np.random.default_rng(seed).integers(0, V, iters)
     mses = []
     t0 = time.time()
-    for it in range(iters):
-        v = int(order[it])
-        key = _pose_variant(poses[v], bound)
-        if key not in losses:
-            losses[key] = _make_loss(*key, **loss_kw)
-        target, mask = targets_for(v, key)
-        optimizer.zero_grad(set_to_none=True)
-        loss, mse = losses[key](state.params, poses_dev[v], float(t_arr[v]), target, mask)
-        loss.backward()
-        optimizer.step()
-        mses.append(mse.detach())
-        if log_every and (it + 1) % log_every == 0:
-            print(f"[{tag}] iter {it + 1}/{iters} mse {float(mses[-1]):.5f}", flush=True)
-    step_mse = torch.stack(mses).cpu().numpy() if mses else np.ones(1, np.float32)
+    if fused:
+        mses = _fused_field_steps(state, order, K, poses, poses_dev, t_arr, losses, loss_kw, targets_for,
+                                  bound=bound, log_every=log_every, tag=tag)
+    else:
+        for it in range(iters):
+            v = int(order[it])
+            key = _pose_variant(poses[v], bound)
+            if key not in losses:
+                losses[key] = _make_loss(*key, **loss_kw)
+            target, mask = targets_for(v, key)
+            optimizer.zero_grad(set_to_none=True)
+            loss, mse = losses[key](state.params, poses_dev[v], float(t_arr[v]), target, mask)
+            loss.backward()
+            optimizer.step()
+            mses.append(mse.detach())
+            if log_every and (it + 1) % log_every == 0:
+                print(f"[{tag}] iter {it + 1}/{iters} mse {float(mses[-1]):.5f}", flush=True)
+    step_mse = torch.cat([m.reshape(-1) for m in mses]).cpu().numpy() if mses else np.ones(1, np.float32)
     dt = time.time() - t0
     n_sup = ri * ri if supervise == "intermediate" else H * W
     info = {
@@ -258,6 +268,58 @@ def _fit_field_loop(
         "step_mse": step_mse,
     }
     return state.detached(), info
+
+
+def _fused_field_steps(state: FieldState, order, K: int, poses, poses_dev, t_arr, losses, loss_kw, targets_for,
+                       *, bound: float, log_every: int, tag: str):
+    """The schedule ``order`` in chunks of K steps (``_fit_field_loop``'s
+    fused dispatch) -> the steps' mse, a list of [n] device tensors."""
+    from focnerf_tpu_torch.train.fused import GraphedSteps
+
+    device = poses_dev.device
+    V = len(poses)
+    variant = [_pose_variant(poses[v], bound) for v in range(V)]
+    for key in sorted(set(variant)):
+        if key not in losses:
+            losses[key] = _make_loss(*key, **loss_kw)
+    warped = [targets_for(v, variant[v]) for v in range(V)]
+    targets = torch.stack([w for w, _ in warped])
+    masks = torch.stack([m for _, m in warped])
+    t_dev = torch.as_tensor(t_arr, device=device)
+    steps = GraphedSteps(device)
+    ids = torch.zeros((K,), dtype=torch.int64, device=device)
+    mse_buf = torch.zeros((K,), device=device)
+    optimizer = state.optimizer
+
+    def body(key):
+        slot = steps.slot
+        vid = ids.index_select(0, slot)
+        optimizer.zero_grad(set_to_none=True)
+        loss, mse = losses[key](state.params, poses_dev.index_select(0, vid)[0], t_dev.index_select(0, vid)[0],
+                                targets.index_select(0, vid)[0], masks.index_select(0, vid)[0])
+        loss.backward()
+        optimizer.step()
+        mse_buf.index_copy_(0, slot, mse.detach().reshape(1))
+        slot.add_(1)
+
+    mses = []
+    it = 0
+    while it < len(order):
+        n = min(K, len(order) - it)
+        chunk = torch.as_tensor(np.asarray(order[it : it + n], np.int64))
+        ids[:n].copy_(chunk.pin_memory() if device.type == "cuda" else chunk, non_blocking=True)
+        steps.start()
+        for v in order[it : it + n]:
+            key = variant[int(v)]
+            steps.run(key, lambda key=key: body(key))
+        mses.append(mse_buf[:n].clone())
+        it += n
+        if log_every and (it % log_every) < n:
+            print(f"[{tag}] iter {it}/{len(order)} mse {float(mses[-1][-1]):.5f}", flush=True)
+    if device.type == "cuda":
+        print(f"[{tag}] fused dispatch: {len(order)} steps in chunks of {K}, {steps.captures} graphs "
+              f"captured, {steps.replays} replays", flush=True)
+    return mses
 
 
 def _c2f_stage_plan(resolution: int, stages: int, iters: int):

@@ -51,16 +51,33 @@ def init_dyn_voxel_field(
 
 def _slot_interp(n_slots: int, t):
     """(i0, f) of the linear interpolation over ``n_slots`` slots at t in
-    [0, 1], in fp32 as JAX computes them."""
+    [0, 1], in fp32 as JAX computes them: host numbers for a float t, 0-d
+    device tensors (the same values, no host read) for a tensor t, as the
+    fused voxel loop's CUDA graphs pass it."""
+    if torch.is_tensor(t):
+        x = torch.clamp(t.float(), 0.0, 1.0) * float(n_slots - 1)
+        i0 = torch.clamp(torch.floor(x), 0.0, float(n_slots - 2))
+        return i0.long(), x - i0
     x = np.float32(np.clip(np.float32(t), 0.0, 1.0)) * np.float32(n_slots - 1)
     i0 = min(max(int(np.floor(x)), 0), n_slots - 2)
     return i0, float(x - np.float32(i0))
 
 
+def slot_lerp(table: torch.Tensor, dim: int, t) -> torch.Tensor:
+    """``table`` linearly interpolated along its slot axis ``dim`` at t in
+    [0, 1] (``_slot_interp``), that axis removed."""
+    i0, f = _slot_interp(table.shape[dim], t)
+    if torch.is_tensor(i0):
+        i0 = i0.reshape(1)
+        lo, hi = table.index_select(dim, i0).squeeze(dim), table.index_select(dim, i0 + 1).squeeze(dim)
+    else:
+        lo, hi = table.select(dim, i0), table.select(dim, i0 + 1)
+    return (1.0 - f) * lo + f * hi
+
+
 def time_weights(wslots: torch.Tensor, t) -> torch.Tensor:
     """w(t) by linear interpolation of the S slots over t in [0, 1]."""
-    i0, f = _slot_interp(wslots.shape[0], t)
-    return (1.0 - f) * wslots[i0] + f * wslots[i0 + 1]
+    return slot_lerp(wslots, 0, t)
 
 
 def collapse_field(field: DynVoxelField, t) -> torch.Tensor:

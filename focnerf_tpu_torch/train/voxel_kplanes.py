@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from focnerf_tpu_torch.render.baked import BakedVolume
 from focnerf_tpu_torch.train.voxel import field_to_volume, payload_channels
-from focnerf_tpu_torch.train.voxel_dynamic import _slot_interp
+from focnerf_tpu_torch.train.voxel_dynamic import slot_lerp
 
 
 class KPlanesField(NamedTuple):
@@ -71,8 +71,7 @@ def init_kplanes_field(
 def _time_vectors(time_planes: torch.Tensor, t) -> torch.Tensor:
     """The [3, R, T, K, C] time planes at t in [0, 1] -> per-axis vectors
     [3, R, K, C] (linear over the T slots)."""
-    i0, f = _slot_interp(time_planes.shape[2], t)
-    return (1.0 - f) * time_planes[:, :, i0] + f * time_planes[:, :, i0 + 1]
+    return slot_lerp(time_planes, 2, t)
 
 
 def collapse_kplanes(field: KPlanesField, t) -> torch.Tensor:

@@ -2,7 +2,7 @@
 a tiny scene (bake_res 16, 24x24 views, a few steps): the artifacts, the
 log lines that tools/parity.py's regexes read, the JAX loaders reading
 what the port wrote, the refused multi-device options, and
-``--steps_per_dispatch 4`` giving the parameters of 1."""
+``--steps_per_dispatch 4`` (the fused dispatch) giving the parameters of 1."""
 
 import os
 import re
@@ -117,10 +117,14 @@ def test_multi_device_options_are_refused_by_name(scenes, tmp_path, flags, name)
         run(scenes[0], str(tmp_path / "sp"), *flags)
 
 
-def test_steps_per_dispatch_gives_the_parameters_of_one(scenes, tmp_path, capsys):
+def test_steps_per_dispatch_gives_the_parameters_of_one(scenes, tmp_path, monkeypatch):
+    """The fused dispatch runs (chunks of 4 and a tail of 1) and trains the
+    parameters of the per-step loop, bit for bit on the CPU."""
+    from focnerf_tpu_torch.train import voxel
+
     one, _ = run(scenes[0], str(tmp_path / "k1"), iters=5)
-    capsys.readouterr()
+    chunked, real = [], voxel._fused_field_steps
+    monkeypatch.setattr(voxel, "_fused_field_steps", lambda *a, **k: (chunked.append(a[2]), real(*a, **k))[1])
     four, _ = run(scenes[0], str(tmp_path / "k4"), "--steps_per_dispatch", "4", iters=5)
-    out = capsys.readouterr().out
-    assert out.count("--steps_per_dispatch 4: the port runs the same update sequence") == 1
+    assert chunked == [4]
     assert torch.equal(one.rgba, four.rgba)

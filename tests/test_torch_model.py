@@ -1,6 +1,8 @@
 """The port's field (d) held against the JAX field on the CPU, through
 ``interop.params_from_jax``: fp32 tight, then bf16 loose."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,14 @@ def start_torch_threads():
     """Start torch's intra-op thread pool before this process runs any JAX
     computation. A pool first started after XLA:CPU has run was seen to
     compute one chunk of its first parallel op (an exp) with ~1e-4 error,
-    in about 3% of fresh processes; started first, it never did (0 of 240)."""
+    in about 3% of fresh processes; started first, it never did (0 of 240).
+
+    Under pytest-xdist each worker takes its share of the cores: with every
+    worker's pool at full width, W workers on C cores run W x C spinning
+    threads, and a test takes several times its time alone."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
     torch.exp(torch.zeros(1 << 20)).sum()
 
 

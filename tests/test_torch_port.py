@@ -92,13 +92,14 @@ def test_port_imports_with_the_cards_packages_missing():
 
 
 def test_kernel_module_imports_without_nvcc(monkeypatch):
-    from focnerf_tpu_torch.ops import _build, composite, hashgrid
+    from focnerf_tpu_torch.ops import _build, composite, hashgrid, marching
 
     assert composite.composite_rays_fused.launches >= 0
     assert composite.composite_rays_fused_backward.launches >= 0
     assert composite.composite_rays_resume.launches >= 0
     assert hashgrid.hashgrid_table_grad.launches >= 0
-    assert _build.KERNEL_SOURCES == ("composite", "hashgrid_bwd")
+    assert marching.march_rays_skip.launches >= 0
+    assert _build.KERNEL_SOURCES == ("composite", "hashgrid_bwd", "march_skip")
     for name in _build.KERNEL_SOURCES:
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
@@ -271,6 +272,53 @@ def test_position_gradient_on_card_matches_cpu(dim):
     # fp32 in another order: the finest level's scale (4095) times an ulp
     assert float((xg - xc).abs().max()) <= 1e-5 * float(xc.abs().max())
     assert float((tg - tc).abs().max()) <= 1e-5 * float(tc.abs().max())
+
+
+def _skip_field_and_rays(n: int, seed: int, device):
+    """A two-cascade skip field of shells and a slab (H = 64) and n rays from
+    cameras at radius 3 through the box."""
+    from focnerf_tpu_torch.core.geometry import near_far_from_aabb
+    from focnerf_tpu_torch.ops.occupancy import occupancy_skip_field
+
+    G, bound = 64, 2.0
+    ax = (torch.arange(G).float() + 0.5) / G * 2 - 1
+    X, Y, Z = torch.meshgrid(ax, ax, ax, indexing="ij")
+    bits = []
+    for c in range(2):
+        r = torch.sqrt(X * X + Y * Y + Z * Z) * 2.0**c
+        bits.append((((r > 0.7) & (r < 0.85)) | ((X * 2.0**c - 0.3).abs() < 0.05)).reshape(-1))
+    skip = occupancy_skip_field(torch.stack(bits), grid_size=G).to(device)
+    g = torch.Generator().manual_seed(seed)
+    eye = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=-1) * 3.0
+    d = torch.nn.functional.normalize(torch.randn(n, 3, generator=g) * 0.5 - eye, dim=-1)
+    o, d = eye.to(device), d.to(device)
+    near, far = near_far_from_aabb(o, d, torch.tensor([-bound] * 3 + [bound] * 3, device=device), 0.2)
+    noise = torch.rand(n, generator=g).to(device)
+    return o, d, near, far, skip, noise, dict(bound=bound, grid_size=G, max_steps=1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab,dt_gamma,jitter,max_iters", [(128, 1 / 128, True, 0), (16, 1 / 128, False, 0),
+                                                            (64, 0.0, True, 0), (32, 1 / 128, True, 20)])
+def test_march_kernel_matches_plain_walk(slab, dt_gamma, jitter, max_iters):
+    """The skip-walk kernel equals the plain walk on the card bit for bit
+    (ts, dts, valid, count), one launch a walk, at the -O and iterative
+    shapes, without dt growth and under an iteration cap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the march kernel has no CPU mode")
+    from focnerf_tpu_torch.ops import marching
+
+    o, d, near, far, skip, noise, kw = _skip_field_and_rays(4096, slab, "cuda")
+    kw.update(dt_gamma=dt_gamma, slab=slab, max_iters=max_iters, noise=noise if jitter else None)
+    before = marching.march_rays_skip.launches
+    got = marching.march_rays_skip(o, d, near, far, skip, **kw)
+    want = marching.march_skip_plain(o, d, near, far, skip, **kw)
+    torch.cuda.synchronize()
+    assert marching.march_rays_skip.launches == before + 1
+    for name in ("ts", "dts", "valid", "count"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert int(got.iters) == int(got.ray_iters.max()) > 0
+    assert 0 <= want.iters - int(got.iters) < 4  # the plain walk counts in steps of 4
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])

@@ -188,8 +188,10 @@ def test_main_needs_cuda_or_an_explicit_cpu(scene, tmp_path):
     # -O training with a val split and the default eval_renderer ("iter")
     # runs on an explicit CPU and evaluates through the iterative renderer
     render_rays_iterative.rounds = 0
+    # no mesh export: at the default 256^3 it took most of the test's time,
+    # and nothing here reads the mesh
     (tr,) = tmain.main(argv + ["-O", "--scale", "1.0", "--bound", "1.0", "--grid_levels", "4",
-                               "--num_rays", "256", "--iters", "3"], device="cpu")
+                               "--num_rays", "256", "--iters", "3", "--mesh_res", "0"], device="cpu")
     assert tr.eval_renderer == "iter" and tr.global_step == 3 and tr.last_eval_step == 3
     assert render_rays_iterative.rounds > 0 and np.isfinite(tr.last_eval_results["PSNR"])
     assert os.path.exists(os.path.join(str(tmp_path / "ws") + "_background", "checkpoints",

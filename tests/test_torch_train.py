@@ -211,9 +211,17 @@ def test_meters_match_jax():
 
 
 # ---------------------------------------------------- (d) main_nerf end to end
-@pytest.mark.parametrize("eval_renderer", ["oneshot", "iter"])
+# the ``iter`` case is tests/test_torch_train_iter.py's: each case is a few
+# CLI runs, and --dist loadfile gives a file to one worker
+@pytest.mark.parametrize("eval_renderer", ["oneshot"])
 def test_main_nerf_trains_resumes_and_serves(tmp_path, eval_renderer):
-    """``iter`` is the CLI's default: it is not passed."""
+    check_main_nerf_trains_resumes_and_serves(tmp_path, eval_renderer)
+
+
+def check_main_nerf_trains_resumes_and_serves(tmp_path, eval_renderer):
+    """``main_nerf -O`` training, resuming, exporting its mesh and serving
+    on the CPU with ``eval_renderer``; ``iter`` is the CLI's default: it is
+    not passed."""
     from focnerf_tpu_torch.apps import main_nerf
     from focnerf_tpu_torch.data.png import read_image
     from focnerf_tpu_torch.ops.composite import composite_rays_fused, composite_rays_resume
