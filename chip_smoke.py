@@ -212,17 +212,26 @@ non-zero exit code and no result line:
      trains its 4 steps.
  24. parallel (``[parallel]``, ``parallel/``): the -O data-parallel
      occupancy step at full width on world size 1 over NCCL in this process,
-     then 2 ranks on the one card over gloo, each a subprocess with its own
-     timeout (``parallel_rank``): 10 DP steps of phase 5's 4096-ray global
-     batches (the first step's loss within 1e-4 and table update within 1e-2
-     rel L2 of the world-1 step, every rank's params bit for bit equal
-     after the 10, each kernel launched), ``compose_rays_sharded`` at K = 2
-     against ``compose_rays`` (mean 1e-4), one slice-parallel dense step at
-     256^3 against one device (loss and field update 1e-2), ``main_voxel
-     --voxel_sp --voxel_dp 2`` in the ranks' group; then ``torchrun
-     --nproc_per_node 2 -m focnerf_tpu_torch.apps.main_voxel --voxel_sp`` at
-     256^3 for 24 steps (rank 0 alone writes and prints ``[spvoxel]``). The
-     voxel runs load phase 5's first 8 train views and first val view.
+     with the VM (512^3, rank 8) and K-planes (256^3, rank 8, 16 slots)
+     one-device steps (``make_*_dp_step`` at world 1), then 2 ranks on the
+     one card over gloo, each a subprocess with its own timeout
+     (``parallel_rank``): 10 DP steps of phase 5's 4096-ray global batches
+     (the first step's loss within 1e-4 and table update within 1e-2 rel L2
+     of the world-1 step, every rank's params bit for bit equal after the
+     10, each kernel launched), ``compose_rays_sharded`` at K = 2 against
+     ``compose_rays`` (mean 1e-4), one slice-parallel dense step at 256^3
+     against one device (loss and field update 1e-2), the collapse-sharded
+     VM step at 512^3 and K-planes step at 256^3 against their one-device
+     steps (mse and factor update 1e-2, both ranks' factors bit for bit
+     equal after 1 and 3 steps; ms per step and each rank's peak memory),
+     ``main_voxel --voxel_sp --voxel_dp 2`` in the ranks' group; then
+     ``torchrun --nproc_per_node 2 -m focnerf_tpu_torch.apps.main_voxel
+     --voxel_sp`` at 256^3 for 24 steps (rank 0 alone writes and prints
+     ``[spvoxel]``), and ``torchrun ... --voxel_sp --voxel_kplanes 8
+     --voxel_c2f 2`` at 256^3 for 24 steps on phase 14's dynamic hard scene
+     (one writer prints ``[kplanes] SP over 2 devices``; the npz loads; the
+     logged mse finite and falling; a finite val PSNR). The dense voxel
+     runs load phase 5's first 8 train views and first val view.
 
 Every phase prints ``[phase-start] <name>`` before it starts (so a failure
 names its phase) and its seconds after (``[phase] <name>: s``).
@@ -4276,6 +4285,13 @@ PARALLEL_SP_ITERS, PARALLEL_DPSP_ITERS = 24, 4  # main_voxel --voxel_sp under to
 PARALLEL_LOSS_REL, PARALLEL_TABLE_REL = 1e-4, 1e-2  # DP against world 1: PERF.md §2's hash gates
 PARALLEL_COMPOSE_MEAN = 1e-4  # compose_rays_sharded against compose_rays, mean absolute
 PARALLEL_VOXEL_REL = 1e-2  # the SP step against one device: PERF.md §2's bf16 voxel gate
+# the collapse-sharded factor steps: VM at the resolution parallel/vm_sp.py
+# exists for (tools/vm_sp_bench.py --res 512 --rank 8), K-planes at
+# main_voxel's default --bake_res; rank, time slots, the K-planes step's
+# time, and the warm steps timed after the checked first one
+FACTOR_VM_RES, FACTOR_RANK, FACTOR_TIME_SLOTS, FACTOR_T, FACTOR_TIMED_STEPS = 512, 8, 16, 0.37, 2
+FACTOR_LR, FACTOR_TV, FACTOR_TIME_SMOOTH = 2e-2, 1e-4, 1e-3  # the SP steps' defaults, passed to the one-device steps
+PARALLEL_KPLANES_ITERS, PARALLEL_KPLANES_C2F = 24, 2  # torchrun main_voxel --voxel_sp --voxel_kplanes 8
 
 
 def _parallel_draws(cfg, n_rays: int, slab: int, step: int, dev):
@@ -4309,14 +4325,147 @@ def _table(state):
 
 
 def _params_digest(params) -> str:
-    import hashlib
-
     from focnerf_tpu_torch.train.state import param_leaves
 
+    return _leaves_digest(param_leaves(params))
+
+
+def _leaves_digest(leaves) -> str:
+    import hashlib
+
     h = hashlib.sha256()
-    for p in param_leaves(params):
+    for p in leaves:
         h.update(p.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()
+
+
+def _factor_problem(name: str, inp, dev):
+    """One factor family's step problem, alike in every process: (the
+    seeded initial field, its resolution, the view's (axis, flip) and its
+    target and mask warped to the intermediate plane)."""
+    import torch
+
+    from focnerf_tpu_torch.render import baked as tb
+    from focnerf_tpu_torch.train import voxel_kplanes as tkp
+    from focnerf_tpu_torch.train import voxel_vm as tvm
+
+    g = torch.Generator().manual_seed(0)
+    if name == "vm":
+        res, field = FACTOR_VM_RES, tvm.init_vm_field(FACTOR_VM_RES, rank=FACTOR_RANK, generator=g, device=dev)
+    else:
+        res, field = VOXEL_RES, tkp.init_kplanes_field(VOXEL_RES, rank=FACTOR_RANK, time_res=FACTOR_TIME_SLOTS,
+                                                       generator=g, device=dev)
+    pose, img, intr = inp["voxel_pose"], inp["voxel_image"], inp["voxel_intr"]
+    axis, flip = tb.view_axis(pose.cpu().numpy(), 1.0)
+    wgt, mask = tb.warp_gt_to_intermediate(img, pose, intr, 1.0, axis=axis, flip=flip, ri=2 * res)
+    return field, res, axis, flip, wgt, mask
+
+
+def _timed_steps(run, sync):
+    """(the first call's value, its ms, the mean ms of FACTOR_TIMED_STEPS
+    further calls)."""
+    t0 = time.time()
+    value = run()
+    sync()
+    first_ms = (time.time() - t0) * 1e3
+    t0 = time.time()
+    for _ in range(FACTOR_TIMED_STEPS):
+        run()
+    sync()
+    return value, first_ms, (time.time() - t0) * 1e3 / FACTOR_TIMED_STEPS
+
+
+def _peak_gib(dev) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+
+
+def factor_one_device(name: str, inp, dev, sync) -> dict:
+    """The one-device step of a factor family (``make_vm_dp_step`` /
+    ``make_kplanes_dp_step`` at world 1, in the caller's group) on
+    ``_factor_problem``: its mse, its factors after the first step (on the
+    host), ms for the first and the warm steps, peak memory."""
+    import torch
+
+    from focnerf_tpu_torch.parallel.mesh import make_mesh
+    from focnerf_tpu_torch.train import voxel_kplanes as tkp
+    from focnerf_tpu_torch.train import voxel_vm as tvm
+
+    field, res, axis, flip, wgt, mask = _factor_problem(name, inp, dev)
+    kw = dict(H=1, W=1, resolution=res, warp_axis=axis, flip=flip, lr=FACTOR_LR, tv_weight=FACTOR_TV)
+    pose = inp["voxel_pose"].cpu().numpy()[None]
+    if name == "vm":
+        init, step = tvm.make_vm_dp_step(make_mesh(device=dev), (1.0,) * 4, **kw)
+        args = (pose, wgt[None], mask[None])
+    else:
+        init, step = tkp.make_kplanes_dp_step(make_mesh(device=dev), (1.0,) * 4,
+                                              time_smooth_weight=FACTOR_TIME_SMOOTH, **kw)
+        args = (pose, [FACTOR_T], wgt[None], mask[None])
+    state = init(field)
+    del field
+    out = {}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        mse = float(step(state, *args))
+        if "leaves" not in out:
+            out["leaves"] = [p.detach().to("cpu", copy=True) for p in state.leaves]
+        return mse
+
+    out["mse"], out["first_ms"], out["warm_ms"] = _timed_steps(run, sync)
+    out["peak_gib"] = _peak_gib(dev)
+    return out
+
+
+def factor_sp_rank(name: str, mesh, inp, pdir: str, rank: int, dev, sync) -> dict:
+    """One rank's collapse-sharded step of a factor family
+    (``make_vm_sp_step`` / ``make_kplanes_sp_step``) on ``_factor_problem``:
+    the mse, a digest of the factors after the first step and after the
+    timed ones, ms per step, this rank's peak memory; rank 0 also holds its
+    first update against the one-device step's (``factor_one.pt``)."""
+    import torch
+
+    from focnerf_tpu_torch.parallel.kplanes_sp import make_kplanes_sp_step
+    from focnerf_tpu_torch.parallel.vm_sp import make_vm_sp_step
+
+    field, res, axis, flip, wgt, mask = _factor_problem(name, inp, dev)
+    kw = dict(resolution=res, warp_axis=axis, flip=flip, lr=FACTOR_LR, tv_weight=FACTOR_TV)
+    pose = inp["voxel_pose"]
+    if name == "vm":
+        init, step = make_vm_sp_step(mesh, **kw)
+        args = (pose, wgt, mask)
+    else:
+        init, step = make_kplanes_sp_step(mesh, time_smooth_weight=FACTOR_TIME_SMOOTH, **kw)
+        args = (pose, FACTOR_T, wgt, mask)
+    field0 = [p.detach().to("cpu", copy=True) for p in field]
+    state = init(field)
+    del field
+    out = {"axis": axis, "flip": flip, "res": res}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        mse = float(step(state, *args))
+        if "digest1" not in out:
+            out["digest1"] = _leaves_digest(state.leaves)
+            if rank == 0:
+                one = torch.load(os.path.join(pdir, "factor_one.pt"), weights_only=False)[name]
+                d_sp = torch.cat([(p.detach().cpu() - p0).flatten() for p, p0 in zip(state.leaves, field0)])
+                d_one = torch.cat([(p - p0).flatten() for p, p0 in zip(one["leaves"], field0)])
+                out["update_rel"] = float((d_sp - d_one).norm() / d_one.norm().clamp(min=1e-30))
+        return mse
+
+    out["mse"], out["first_ms"], out["warm_ms"] = _timed_steps(run, sync)
+    out["peak_gib"] = _peak_gib(dev)
+    out["digest"] = _leaves_digest(state.leaves)
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def parallel_rank(rank: int, world: int, pdir: str, device: str = "cuda") -> None:
@@ -4324,7 +4473,8 @@ def parallel_rank(rank: int, world: int, pdir: str, device: str = "cuda") -> Non
     (gloo): the -O DP occupancy step PARALLEL_STEPS times on phase 5's global
     batches, compose_rays_sharded (K = 2, one object a rank; rank 0 also
     composes on its own), one slice-parallel dense step at the inputs'
-    voxel resolution (rank 0 also takes the single-device step), then
+    voxel resolution (rank 0 also takes the single-device step), the
+    collapse-sharded VM and K-planes steps (``factor_sp_rank``), then
     ``main_voxel --voxel_sp --voxel_dp 2`` in this group. Writes rank<r>.pt
     for the parent."""
     import torch
@@ -4413,6 +4563,11 @@ def parallel_rank(rank: int, world: int, pdir: str, device: str = "cuda") -> Non
     del full, sp, raw0
     times["sp"] = time.time()
 
+    # the collapse-sharded factor steps, each against its one-device step
+    for name in ("vm", "kplanes"):
+        out[name] = factor_sp_rank(name, mesh, inp, pdir, rank, dev, sync)
+        times[name] = time.time()
+
     # main_voxel --voxel_sp --voxel_dp 2 in this group (a data x slice = 2 x 1 mesh)
     vol, info = main_voxel.main([inp["scene"], "--workspace", os.path.join(pdir, "dpsp_ws"), "--bake_res",
                                  str(res), "--scale", str(inp["scale"]), "--bound", "1.0", "--iters",
@@ -4473,12 +4628,13 @@ def _wait_ranks(pdir: str, procs, deadline: float):
 
 
 def phase_parallel(work: str, dev, smi: str, trainer, ds) -> dict:
-    """The multi-device paths: the world-1 -O DP step on NCCL in this
+    """The multi-device paths: the world-1 -O DP step and the factor
+    families' one-device steps (``factor_one_device``) on NCCL in this
     process, then PARALLEL_RANKS ranks on the one card over gloo
     (``parallel_rank``), then ``torchrun --nproc_per_node 2 -m
-    focnerf_tpu_torch.apps.main_voxel --voxel_sp`` at VOXEL_RES^3. Returns
-    the kernels' launches summed over the ranks' DP steps and sharded
-    composition."""
+    focnerf_tpu_torch.apps.main_voxel --voxel_sp`` at VOXEL_RES^3 and its
+    K-planes run (``phase_parallel_kplanes_cli``). Returns the kernels'
+    launches summed over the ranks' DP steps and sharded composition."""
     import numpy as np
     import torch
 
@@ -4532,8 +4688,15 @@ def phase_parallel(work: str, dev, smi: str, trainer, ds) -> dict:
     m1 = make_sharded_train_step_occupancy(cfg, make_mesh(device=dev), **kw)(
         state, batches[0], inp["occ"], _parallel_draws(cfg, n_rays, kw["slab"], 0, dev))
     loss1, grid1 = float(m1["loss"]), _table(state)
-    shutdown()
     del state
+    # the factor families' one-device steps, which the ranks' SP steps are held to
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    one = {name: factor_one_device(name, inp, dev, sync) for name in ("vm", "kplanes")}
+    shutdown()
+    torch.save({name: {"leaves": o.pop("leaves"), "mse": o["mse"]} for name, o in one.items()},
+               os.path.join(pdir, "factor_one.pt"))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
     # the ranks and, beside them, torchrun (the two share the card and the
     # host: the DP step's ms/step below is taken beside torchrun's start-up)
@@ -4605,6 +4768,23 @@ def phase_parallel(work: str, dev, smi: str, trainer, ds) -> dict:
         raise AssertionError(f"[parallel] main_voxel --voxel_sp --voxel_dp 2: {[r['dpsp'] for r in res]}")
     if "[dpspvoxel] trained on a 2x1 (data x slice) mesh" not in logs[0] or "[dpspvoxel]" in logs[1]:
         raise AssertionError("[parallel] --voxel_dp: rank 0 alone should print [dpspvoxel]")
+    for name, label in (("vm", f"VM rank {FACTOR_RANK}"),
+                        ("kplanes", f"K-planes rank {FACTOR_RANK}, {FACTOR_TIME_SLOTS} time slots, t {FACTOR_T},")):
+        f, o = r0[name], one[name]
+        rel = abs(f["mse"] - o["mse"]) / abs(o["mse"])
+        same1, same = len({r[name]["digest1"] for r in res}) == 1, len({r[name]["digest"] for r in res}) == 1
+        print(f"[parallel] collapse-sharded {label} SP step at {f['res']}^3 (axis {f['axis']}, flip {f['flip']}, ri "
+              f"{2 * f['res']}, bf16 operands) on {PARALLEL_RANKS} ranks against one device (make_{name}_dp_step at "
+              f"world 1): mse {f['mse']:.6g} vs {o['mse']:.6g} (rel {rel:.3g}), factor update rel L2 "
+              f"{f['update_rel']:.3g} (limits {PARALLEL_VOXEL_REL}); factors equal on every rank after 1 step "
+              f"{same1}, after {1 + FACTOR_TIMED_STEPS} {same}; SP ms/step first {f['first_ms']:.1f}, warm "
+              f"{f['warm_ms']:.1f} (ranks {[round(r[name]['warm_ms'], 1) for r in res]}); one device first "
+              f"{o['first_ms']:.1f}, warm {o['warm_ms']:.1f}; peak memory per rank "
+              f"{[round(r[name]['peak_gib'], 3) for r in res]} GiB, one device {o['peak_gib']:.3f} GiB ({smi})")
+        if not (rel <= PARALLEL_VOXEL_REL and f["update_rel"] <= PARALLEL_VOXEL_REL):
+            raise AssertionError(f"[parallel] the collapse-sharded {name} step disagrees with one device")
+        if not (same1 and same and np.isfinite(f["mse"])):
+            raise AssertionError(f"[parallel] the ranks' {name} factors differ after the SP steps")
 
     # main_voxel --voxel_sp through torchrun, one process a rank
     if cli.returncode != 0:
@@ -4631,7 +4811,71 @@ def phase_parallel(work: str, dev, smi: str, trainer, ds) -> dict:
     val = re.findall(r"\[voxel\] val PSNR: ([0-9.]+) dB", cli_out)
     if len(trained) != 1 or len(val) != 1 or not (len(mses) >= 2 and np.isfinite(mses).all()):
         raise AssertionError(f"[parallel] torchrun main_voxel --voxel_sp: mse {mses}, fit {trained}, val {val}")
+    phase_parallel_kplanes_cli(work, pdir, env, smi)
     return launches
+
+
+def phase_parallel_kplanes_cli(work: str, pdir: str, env: dict, smi: str) -> None:
+    """``torchrun --nproc_per_node 2 -m focnerf_tpu_torch.apps.main_voxel
+    --voxel_sp --voxel_kplanes 8 --voxel_c2f 2`` at VOXEL_RES^3 on phase
+    14's dynamic hard scene (its per-frame times), PARALLEL_KPLANES_ITERS
+    steps on the ladder through ``fit_kplanes_sp_c2f``: one writer prints
+    ``[kplanes] SP over 2 devices``, the planes' npz loads with its shapes,
+    every logged step mse is finite and the later half's mean is under the
+    earlier half's, and the val PSNR is finite."""
+    import re
+
+    import numpy as np
+
+    from focnerf_tpu_torch.train.voxel import _c2f_stage_plan
+    from focnerf_tpu_torch.train.voxel_kplanes import load_kplanes_field
+
+    scene, ws = os.path.join(work, f"harddyn_{DYN_RES}_{DYN_GT_RES}"), os.path.join(pdir, "kplanes_ws")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(PARALLEL_RANKS),
+           "-m", "focnerf_tpu_torch.apps.main_voxel", scene, "--workspace", ws, "--bake_res", str(VOXEL_RES),
+           "--scale", "1.0", "--bound", "1.0", "--iters", str(PARALLEL_KPLANES_ITERS), "--voxel_sp",
+           "--voxel_kplanes", str(FACTOR_RANK), "--voxel_c2f", str(PARALLEL_KPLANES_C2F)]
+    t0 = time.time()
+    with open(os.path.join(pdir, "torchrun_kplanes.log"), "w") as log:
+        cli = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        cli.wait(timeout=PARALLEL_RANK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        _kill([cli])
+    cli_s = time.time() - t0
+    with open(os.path.join(pdir, "torchrun_kplanes.log")) as f:
+        out = f.read()
+    if cli.returncode != 0:
+        raise AssertionError(f"[parallel] torchrun main_voxel --voxel_sp --voxel_kplanes exited {cli.returncode} "
+                             f"after {cli_s:.1f} s:\n{out[-4000:]}")
+    log_every = max(PARALLEL_KPLANES_ITERS // 10, 1)
+    plan = _c2f_stage_plan(VOXEL_RES, PARALLEL_KPLANES_C2F, PARALLEL_KPLANES_ITERS)
+    mses = [float(x) for x in re.findall(r"\[spkplanes\] iter \d+/\d+ mse ([0-9.]+)", out)]
+    trained = re.findall(r"\[kplanes\] \d+ iters in ([0-9.]+)s — train PSNR ([0-9.]+) dB, ([0-9]+) rays/s", out)
+    val = re.findall(r"\[kplanes\] val PSNR: ([0-9.]+) dB", out)
+    print(f"[parallel] torchrun --nproc_per_node {PARALLEL_RANKS} -m focnerf_tpu_torch.apps.main_voxel --voxel_sp "
+          f"--voxel_kplanes {FACTOR_RANK} --voxel_c2f {PARALLEL_KPLANES_C2F} --bake_res {VOXEL_RES} --iters "
+          f"{PARALLEL_KPLANES_ITERS} (ladder {plan}) on harddyn_{DYN_RES}_{DYN_GT_RES}: {cli_s:.1f} s with start-up, "
+          f"loading, saving, meshes and val; logged mse {', '.join(f'{x:.4f}' for x in mses)}; fit (s, train PSNR, "
+          f"rays/s) {trained}; val PSNR {val} dB ({smi})")
+    path = os.path.join(ws, f"kplanes_{VOXEL_RES}_sh0.npz")
+    field, bound, sh = load_kplanes_field(path, device="cpu")
+    if field.space.shape != (3, VOXEL_RES, VOXEL_RES, FACTOR_RANK, 4) or \
+            field.time.shape != (3, VOXEL_RES, FACTOR_TIME_SLOTS, FACTOR_RANK, 4) or (bound, sh) != (1.0, 0):
+        raise AssertionError(f"[parallel] {path}: {field.space.shape}, {field.time.shape}, {bound}, {sh}")
+    with open(os.path.join(ws, "log.txt")) as f:
+        lines = f.read().splitlines()
+    if out.count(f"[kplanes] SP over {PARALLEL_RANKS} devices") != 1 or len(lines) != 1:
+        raise AssertionError(f"[parallel] torchrun --voxel_kplanes: want one writer, log {lines}")
+    # each logged mse is one view's: the later half's mean must be under the earlier half's
+    n_logged, half = sum(n // log_every for _, n in plan), len(mses) // 2
+    if len(mses) != n_logged or not np.isfinite(mses).all() or not np.mean(mses[half:]) < np.mean(mses[:half]):
+        raise AssertionError(f"[parallel] torchrun --voxel_kplanes: logged mse {mses}, want {n_logged} finite, "
+                             "falling")
+    if len(trained) != 1 or len(val) != 1 or not np.isfinite(float(val[0])):
+        raise AssertionError(f"[parallel] torchrun --voxel_kplanes: fit {trained}, val {val}")
 
 
 def main() -> int:

@@ -21,15 +21,21 @@ writes the workspace's artifacts in JAX's formats, so either package (and
 
 ``--voxel_sp`` trains the dense family slice-parallel over every rank
 (``parallel/voxel_sp.py``; ``--voxel_c2f S`` stages it), ``--voxel_sp
---voxel_dp N`` on a hybrid (N data rows x ranks/N slice shards) mesh. One
-process per device, launched by torchrun (without it: one rank):
+--voxel_dp N`` on a hybrid (N data rows x ranks/N slice shards) mesh, and
+``--voxel_sp --voxel_kplanes K [--voxel_c2f S]`` the K-planes family with
+its collapse cut over every rank (``parallel/kplanes_sp.py``; the planes
+replicated). One process per device, launched by torchrun (without it: one
+rank):
 
   torchrun --nproc_per_node 2 -m focnerf_tpu_torch.apps.main_voxel <scene> \
-      --workspace ws --bake_res 256 --voxel_sp [--voxel_dp 2]
+      --workspace ws --bake_res 256 --voxel_sp [--voxel_dp 2 | --voxel_kplanes 8]
 
-Rank 0 alone writes the volume, the mesh and the log. ``--voxel_dp``
-without ``--voxel_sp`` is ignored, as in JAX (one device, and one line says
-so); ``--voxel_sp --voxel_kplanes`` is refused (not ported yet).
+Rank 0 alone writes the volume or field, the meshes and the log; every rank
+returns the trained volume or field. As in JAX: ``--voxel_dp`` without
+``--voxel_sp`` is ignored (one device, and one line says so); ``--voxel_sp
+--voxel_kplanes`` refuses ``--voxel_dp`` and a ``--bake_res`` that does not
+divide over the ranks; ``--voxel_sp --voxel_vm`` is refused (the VM step,
+``parallel/vm_sp.py``, is a library step).
 ``--steps_per_dispatch K`` runs JAX's update sequence in chunks of K steps
 (``train/voxel.py::_fit_field_loop``; on the card each shear-warp
 variant's step is a CUDA graph replayed in schedule order); as in JAX,
@@ -96,10 +102,11 @@ def _refuse(opt):
             raise ValueError("--voxel_sp shards the dense and K-planes families; drop --voxel_vm/--voxel_dynamic "
                              "(their factorized params replicate: use the DP step)")
         if opt.voxel_supervise != "intermediate":
-            raise ValueError("--voxel_sp trains with intermediate-plane supervision only (parallel/voxel_sp.py)")
-        if opt.voxel_kplanes > 0:
-            raise NotImplementedError("--voxel_sp --voxel_kplanes (parallel/kplanes_sp.py) is not ported yet; "
-                                      "it comes with vm_sp.py in the next slice of the port")
+            raise ValueError("--voxel_sp trains with intermediate-plane supervision only (parallel/voxel_sp.py, "
+                             "parallel/kplanes_sp.py)")
+        if opt.voxel_kplanes > 0 and opt.voxel_dp > 0:
+            raise ValueError("--voxel_dp is the dense family's hybrid mesh; --voxel_sp --voxel_kplanes shards the "
+                             "collapse over every rank — drop --voxel_dp")
         if opt.voxel_dp > 0 and opt.voxel_c2f > 1:
             raise ValueError("--voxel_dp does not stage yet; drop --voxel_c2f or --voxel_dp")
     if opt.voxel_supervise != "intermediate" and n_fam:
@@ -108,8 +115,11 @@ def _refuse(opt):
 
 
 def _train_dynamic(opt, train_ds, val_ds, imgs):
-    """--voxel_dynamic / --voxel_kplanes: fit, save the field, the meshes at
-    --mesh_t (or t = 0 and 1), the val PSNR at each view's time."""
+    """--voxel_dynamic / --voxel_kplanes (with --voxel_sp: collapse-sharded
+    over every rank, rank 0 alone writing): fit, save the field, the meshes
+    at --mesh_t (or t = 0 and 1), the val PSNR at each view's time."""
+    from focnerf_tpu_torch.parallel.distributed import is_main_process
+
     log_every = max(opt.iters // 10, 1)
     t0 = time.time()
     if opt.voxel_kplanes > 0:
@@ -123,13 +133,22 @@ def _train_dynamic(opt, train_ds, val_ds, imgs):
         tag, rank = "kplanes", opt.voxel_kplanes
         kw = dict(seed=opt.seed, resolution=opt.bake_res, rank=rank, time_res=opt.voxel_time_slots,
                   bound=opt.bound, sh_degree=opt.bake_sh, iters=opt.iters, bg_color=1.0,
-                  time_smooth_weight=opt.voxel_time_smooth, log_every=log_every,
-                  steps_per_dispatch=opt.steps_per_dispatch, device=train_ds.device)
+                  time_smooth_weight=opt.voxel_time_smooth, log_every=log_every, device=train_ds.device)
         args = (train_ds.poses, imgs, train_ds.times, train_ds.intrinsics)
-        if opt.voxel_c2f > 1:
-            field, info = fit_kplanes_c2f(*args, stages=opt.voxel_c2f, **kw)
+        if opt.voxel_sp:  # as in JAX, SP does not fuse
+            from focnerf_tpu_torch.parallel.kplanes_sp import fit_kplanes_sp, fit_kplanes_sp_c2f
+
+            if opt.voxel_c2f > 1:
+                field, info = fit_kplanes_sp_c2f(*args, stages=opt.voxel_c2f, **kw)
+            else:
+                field, info = fit_kplanes_sp(*args, **kw)
+            if is_main_process():
+                print(f"[kplanes] SP over {info['n_devices']} devices")
+        elif opt.voxel_c2f > 1:
+            field, info = fit_kplanes_c2f(*args, stages=opt.voxel_c2f, steps_per_dispatch=opt.steps_per_dispatch,
+                                          **kw)
         else:
-            field, info = fit_kplanes(*args, **kw)
+            field, info = fit_kplanes(*args, steps_per_dispatch=opt.steps_per_dispatch, **kw)
     else:
         from focnerf_tpu_torch.train.voxel_dynamic import (
             dyn_field_to_volume as to_volume,
@@ -144,6 +163,8 @@ def _train_dynamic(opt, train_ds, val_ds, imgs):
             bg_color=1.0, time_smooth_weight=opt.voxel_time_smooth, seed=opt.seed, log_every=log_every,
             steps_per_dispatch=opt.steps_per_dispatch, device=train_ds.device,
         )
+    if not is_main_process():
+        return field, info
     cache = os.path.join(opt.workspace, f"{tag}_{opt.bake_res}_sh{opt.bake_sh}.npz")
     save_field(cache, field, opt.bound, opt.bake_sh)
     print(f"[{tag}] {opt.iters} iters in {time.time() - t0:.1f}s — "
@@ -248,8 +269,11 @@ def main(argv=None, device=None):
     from focnerf_tpu_torch.parallel.distributed import initialize, shutdown
 
     owns_group = not dist.is_initialized()  # a torchrun launch, or one rank
-    initialize(device=device)
+    world = initialize(device=device)["num_processes"]
     try:
+        if opt.voxel_kplanes > 0 and opt.bake_res % world:  # before any data loads
+            raise ValueError(f"--bake_res {opt.bake_res} must divide evenly over the {world} ranks for collapse "
+                             "sharding")
         return _main(opt, device)
     finally:
         if owns_group:

@@ -10,7 +10,10 @@ transpose all-reduces and keeps its own slot):
   - ``all_sum``: all-reduce SUM forward; backward is the identity on each
     rank (each rank differentiates its own share: a loss summed over the
     ranks would otherwise get its gradient W times);
-  - ``all_max`` and ``all_mean``: forward only.
+  - ``all_max`` and ``all_mean``: forward only;
+  - ``mean_gradients`` / ``sum_gradients``: the ``.grad`` of replicated
+    parameters averaged (data parallel) or summed (each rank's share of
+    one loss, the collapse-sharded factor steps) over the ranks.
 
 Every rank of the group must make the same calls in the same order, the
 backward ones included: a rank that drops a gathered value from its loss
@@ -77,17 +80,30 @@ def all_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     return out / dist.get_world_size(group)
 
 
-def mean_gradients(tensors, group=None) -> None:
-    """Replace each tensor's ``.grad`` with its mean over the ranks, in one
-    all-reduce of the flattened gradients (a tensor without a gradient
-    counts as zeros). Every rank ends with the same bits."""
+def _reduce_gradients(tensors, group, mean: bool) -> None:
     tensors = list(tensors)
     grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in tensors]
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    flat /= dist.get_world_size(group)
+    if mean:
+        flat /= dist.get_world_size(group)
     offset = 0
     for t in tensors:
         n = t.numel()
         t.grad = flat[offset:offset + n].view_as(t).clone()
         offset += n
+
+
+def mean_gradients(tensors, group=None) -> None:
+    """Replace each tensor's ``.grad`` with its mean over the ranks, in one
+    all-reduce of the flattened gradients (a tensor without a gradient
+    counts as zeros). Every rank ends with the same bits."""
+    _reduce_gradients(tensors, group, mean=True)
+
+
+def sum_gradients(tensors, group=None) -> None:
+    """Replace each tensor's ``.grad`` with its sum over the ranks (one
+    all-reduce, as ``mean_gradients``): the gradient of a replicated input
+    whose ranks each differentiate their own share of the loss, which JAX
+    gets by psumming the cotangent of a ``P()`` input to ``shard_map``."""
+    _reduce_gradients(tensors, group, mean=False)

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from focnerf_tpu_torch.interop import field_slab, join_field_slabs
-from focnerf_tpu_torch.parallel.collectives import all_mean, all_sum, gather, mean_gradients
+from focnerf_tpu_torch.parallel.collectives import all_mean, all_sum, gather, mean_gradients, sum_gradients
 from focnerf_tpu_torch.parallel.distributed import is_main_process
 from focnerf_tpu_torch.train.voxel import FieldState
 
@@ -302,6 +302,82 @@ def make_voxel_dp_sp_step(
     return init, step, shard_fn
 
 
+def _sp_schedule(poses, bound: float, iters: int, seed: int, group_chunk: int, views_per_step: int = 1):
+    """The SP fits' step order: (key, [view]) per step, the views of one
+    (warp_axis, flip) group trained in round-robin chunks of ``group_chunk``
+    and drawn as JAX draws them from ``np.random.default_rng(seed)``."""
+    groups, keys, remaining = _apportion_views(poses, bound, iters)
+    rng = np.random.default_rng(seed)
+    while any(n > 0 for n in remaining.values()):
+        for key in keys:
+            take = min(group_chunk, remaining[key])
+            if take == 0:
+                continue
+            remaining[key] -= take
+            if views_per_step == 1:  # JAX draws a chunk's views at once, the hybrid's per step
+                batches = [[int(v)] for v in rng.choice(groups[key], size=take)]
+            else:  # ceil: iters count view updates
+                batches = ([int(v) for v in rng.choice(groups[key], size=views_per_step)]
+                           for _ in range(-(-take // views_per_step)))
+            for views in batches:
+                yield key, views
+
+
+def _warp_targets(images, poses, intrinsics, bound: float, ri: int, device):
+    """``targets_for(v, key)``: view v's GT pre-warped to the intermediate
+    plane of variant ``key`` (wgt [ri, ri, 3], mask [ri, ri]), once a view."""
+    from focnerf_tpu_torch.render.baked import warp_gt_to_intermediate
+
+    gts = torch.as_tensor(images, dtype=torch.float32).to(device)
+    intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=device)
+    warped: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def targets_for(v: int, key):
+        if v not in warped:
+            warped[v] = warp_gt_to_intermediate(gts[v], poses[v], intr, bound, axis=key[0], flip=key[1], ri=ri)
+        return warped[v]
+
+    return targets_for
+
+
+def _make_factor_sp_step(mesh, *, slab_fn, reg_fn, resolution: int, warp_axis: int, flip: bool, bound: float,
+                        sh_degree: int, lr: float, bg_color: float, density_scale: float, intermediate_scale: int,
+                        remat: bool, block: int, time_conditioned: bool = False):
+    """The collapse-sharded step of a factorized family (VM, K-planes) over a
+    1-D mesh, the factors replicated:
+    ``slab_fn(params, t, warp_axis, d_idx, R_loc)`` -> this rank's raw slab,
+    ``reg_fn(params)`` -> the family regularizer. Returns (init, step):
+    ``init(params)`` -> ``FieldState`` over the replicated factors;
+    ``step(state, pose[, t], wgt, mask)`` -> the mse (alike on every rank)."""
+    axis = mesh.mesh_dim_names[0]
+    group = mesh.get_group(axis)
+    D, d_idx = mesh.size(0), mesh.get_local_rank(axis)
+    R, R_loc, ri, rows_loc = _sp_geometry(resolution, D, intermediate_scale)
+
+    def init(params) -> FieldState:
+        return FieldState(params, lr)
+
+    def step(state: FieldState, pose, t, wgt, mask):
+        params = state.params
+        pose = torch.as_tensor(pose, dtype=torch.float32, device=state.leaves[0].device)
+        state.optimizer.zero_grad(set_to_none=True)
+        raw_loc = slab_fn(params, t, warp_axis, d_idx, R_loc)
+        mse = _sp_slab_strip_mse(
+            raw_loc, pose, wgt, mask, d_idx, group=group, warp_axis=warp_axis, flip=flip, R=R, R_loc=R_loc,
+            ri=ri, rows_loc=rows_loc, bound=bound, sh_degree=sh_degree, density_scale=density_scale,
+            bg_color=bg_color, remat=remat, block=block,
+        )
+        mse.backward()
+        sum_gradients(state.leaves, group)
+        reg_fn(params).backward()  # once, after the sum: JAX evaluates it outside the shard_map
+        state.optimizer.step()
+        return mse.detach()
+
+    if time_conditioned:
+        return init, step
+    return init, lambda state, pose, wgt, mask: step(state, pose, None, wgt, mask)
+
+
 def _fit_sp_loop(poses, images, intrinsics, *, mesh, make_step, views_per_step: int, resolution: int,
                  bound: float, sh_degree: int, iters: int, seed: int, log_every: int, intermediate_scale: int,
                  group_chunk: int, init_raw, device, tag: str):
@@ -310,7 +386,6 @@ def _fit_sp_loop(poses, images, intrinsics, *, mesh, make_step, views_per_step: 
     variant; a step trains ``views_per_step`` views (drawn as JAX draws
     them). Returns (full raw field on every rank, info)."""
     from focnerf_tpu_torch import resolve_device
-    from focnerf_tpu_torch.render.baked import warp_gt_to_intermediate
     from focnerf_tpu_torch.train.voxel import init_voxel_field
 
     device = init_raw.device if init_raw is not None else resolve_device(device)
@@ -318,56 +393,36 @@ def _fit_sp_loop(poses, images, intrinsics, *, mesh, make_step, views_per_step: 
     group = mesh.get_group(slice_axis)
     d_idx, Ds = mesh.get_local_rank(slice_axis), mesh.size(len(mesh.mesh_dim_names) - 1)
     poses = np.asarray(poses, np.float32)
-    gts = torch.as_tensor(images, dtype=torch.float32).to(device)
-    intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=device)
     poses_dev = torch.as_tensor(poses, device=device)
     ri = resolution * intermediate_scale
-    groups, keys, remaining = _apportion_views(poses, bound, iters)
+    targets_for = _warp_targets(images, poses, intrinsics, bound, ri, device)
     steps: Dict[Tuple[int, bool], tuple] = {}
-    warped: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-    def targets_for(v: int, key):
-        if v not in warped:
-            warped[v] = warp_gt_to_intermediate(gts[v], poses[v], intr, bound, axis=key[0], flip=key[1], ri=ri)
-        return warped[v]
 
     raw = init_raw
     if raw is None:
         raw = init_voxel_field(resolution, sh_degree, generator=torch.Generator().manual_seed(seed), device=device)
-    rng = np.random.default_rng(seed)
     state, cur_axis, mses, done = None, None, [], 0
     t0 = time.time()
-    while any(n > 0 for n in remaining.values()):
-        for key in keys:
-            take = min(group_chunk, remaining[key])
-            if take == 0:
-                continue
-            remaining[key] -= take
-            if key not in steps:
-                steps[key] = make_step(key)
-            init, step, shard_fn = steps[key]
-            if state is None:
-                state = init(shard_fn(raw))
-            elif key[0] != cur_axis:  # flip shares the axis: no re-cut
-                _reshard(state, cur_axis, key[0], group, d_idx, Ds)
-            cur_axis = key[0]
-            if views_per_step == 1:  # JAX draws a chunk's views at once, the hybrid's per step
-                batches = [[int(v)] for v in rng.choice(groups[key], size=take)]
-            else:  # ceil: iters count view updates
-                batches = ([int(v) for v in rng.choice(groups[key], size=views_per_step)]
-                           for _ in range(-(-take // views_per_step)))
-            for views in batches:
-                tw = [targets_for(v, key) for v in views]
-                if views_per_step == 1:
-                    mse = step(state, poses_dev[views[0]], *tw[0])
-                else:
-                    mse = step(state, poses[views], [t[0] for t in tw], [t[1] for t in tw])
-                mses.append(mse)
-                done += views_per_step
-                n_steps = done // views_per_step
-                if log_every and n_steps % log_every == 0 and is_main_process():
-                    print(f"[{tag}] view-updates {done}/{iters} mse {float(mse):.5f}" if views_per_step > 1
-                          else f"[{tag}] iter {done}/{iters} mse {float(mse):.5f}", flush=True)
+    for key, views in _sp_schedule(poses, bound, iters, seed, group_chunk, views_per_step):
+        if key not in steps:
+            steps[key] = make_step(key)
+        init, step, shard_fn = steps[key]
+        if state is None:
+            state = init(shard_fn(raw))
+        elif key[0] != cur_axis:  # flip shares the axis: no re-cut
+            _reshard(state, cur_axis, key[0], group, d_idx, Ds)
+        cur_axis = key[0]
+        tw = [targets_for(v, key) for v in views]
+        if views_per_step == 1:
+            mse = step(state, poses_dev[views[0]], *tw[0])
+        else:
+            mse = step(state, poses[views], [t[0] for t in tw], [t[1] for t in tw])
+        mses.append(mse)
+        done += views_per_step
+        n_steps = done // views_per_step
+        if log_every and n_steps % log_every == 0 and is_main_process():
+            print(f"[{tag}] view-updates {done}/{iters} mse {float(mse):.5f}" if views_per_step > 1
+                  else f"[{tag}] iter {done}/{iters} mse {float(mse):.5f}", flush=True)
     step_mse = torch.stack(mses).cpu().numpy()
     dt = time.time() - t0
     raw = _gather_field(state.leaves[0], cur_axis, group)
@@ -380,6 +435,43 @@ def _fit_sp_loop(poses, images, intrinsics, *, mesh, make_step, views_per_step: 
         "step_mse": step_mse,
     }
     return raw, info
+
+
+def _fit_replicated_sp_loop(poses, images, intrinsics, *, mesh, make_step, params, times, bound: float,
+                            iters: int, seed: int, log_every: int, ri: int, group_chunk: int, tag: str):
+    """The variant-grouped engine of the collapse-sharded factor fits
+    (``parallel/vm_sp.py``, ``kplanes_sp.py``): the factors and their Adam
+    are replicated, so a variant switch changes only the step, never the
+    state. ``make_step(key)`` -> (init, step); ``times`` None, or [V] (the
+    step then takes each view's time). Returns (the trained factors, info)."""
+    device = params[0].device
+    poses = np.asarray(poses, np.float32)
+    poses_dev = torch.as_tensor(poses, device=device)
+    targets_for = _warp_targets(images, poses, intrinsics, bound, ri, device)
+    steps: Dict[Tuple[int, bool], tuple] = {}
+    state, mses = None, []
+    t0 = time.time()
+    for key, (v,) in _sp_schedule(poses, bound, iters, seed, group_chunk):
+        if key not in steps:
+            steps[key] = make_step(key)
+        init, step = steps[key]
+        if state is None:
+            state = init(params)
+        t = () if times is None else (float(times[v]),)
+        mse = step(state, poses_dev[v], *t, *targets_for(v, key))
+        mses.append(mse)
+        if log_every and len(mses) % log_every == 0 and is_main_process():
+            print(f"[{tag}] iter {len(mses)}/{iters} mse {float(mse):.5f}", flush=True)
+    step_mse = torch.stack(mses).cpu().numpy()
+    dt = time.time() - t0
+    info = {
+        "psnr": -10.0 * float(np.log10(max(float(step_mse[-1]), 1e-10))),
+        "rays_per_sec": ri * ri * len(mses) / dt,
+        "seconds": dt,
+        "n_devices": mesh.size(),
+        "step_mse": step_mse,
+    }
+    return state.detached(), info
 
 
 def fit_voxels_sp(

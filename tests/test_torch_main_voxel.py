@@ -106,15 +106,17 @@ def test_dynamic_families_write_what_jax_reads(scenes, tmp_path, capsys, family)
         assert f.read().startswith(f"{family} res=16 rank=2 iters=4 val_psnr=")
 
 
-# the multi-device flags the port still refuses (JAX's guards, and the
-# K-planes SP step of a later slice); --voxel_sp and --voxel_dp themselves
-# train (tests/test_torch_parallel.py, test_torch_voxel_sp.py)
+# the multi-device flag combinations the port refuses (JAX's guards, and
+# --voxel_dp with c2f); --voxel_sp, --voxel_dp and --voxel_sp
+# --voxel_kplanes themselves train (tests/test_torch_parallel.py,
+# test_torch_voxel_sp.py, test_torch_factor_sp.py)
 @pytest.mark.parametrize("flags,name", [(["--voxel_sp", "--voxel_vm", "4"], "--voxel_sp"),
                                         (["--voxel_sp", "--voxel_dp", "2", "--voxel_c2f", "2"], "--voxel_dp"),
-                                        (["--voxel_sp", "--voxel_kplanes", "2"], "--voxel_sp")])
+                                        (["--voxel_sp", "--voxel_kplanes", "2", "--voxel_dp", "2"], "--voxel_sp")])
 def test_multi_device_options_are_refused_by_name(scenes, tmp_path, flags, name):
-    with pytest.raises((ValueError, NotImplementedError), match=name):
+    with pytest.raises(ValueError, match=name) as e:
         run(scenes[0], str(tmp_path / "sp"), *flags)
+    assert flags[-2] in str(e.value)  # the option to drop is named too
 
 
 def test_steps_per_dispatch_gives_the_parameters_of_one(scenes, tmp_path, monkeypatch):

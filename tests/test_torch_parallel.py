@@ -7,8 +7,9 @@ JAX package's on a 2-device mesh cut from conftest's 8 host devices:
     and the update; the ranks' params bit for bit after 3 steps;
   - ``compose_rays_sharded`` with K = 4 objects over the 2 ranks;
   - the four voxel families' pose-parallel steps (``make_*_dp_step``);
-  - ``main_voxel --voxel_sp`` on 2 ranks (rank 0 alone writes), and
-    ``--voxel_dp`` without ``--voxel_sp`` (ignored, as JAX ignores it);
+  - ``main_voxel --voxel_sp`` on 2 ranks (rank 0 alone writes),
+    ``--voxel_dp`` without ``--voxel_sp`` (ignored, as JAX ignores it) and
+    with ``--voxel_sp --voxel_kplanes`` (refused, as JAX refuses it);
   - a rank whose peer never arrives raises within its timeout.
 
 The ranks are two worker processes, started once for the file by a
@@ -557,12 +558,16 @@ def test_voxel_dp_without_sp_is_ignored_as_in_jax(tmp_path, capsys):
 
 
 def test_voxel_sp_kplanes_is_refused_in_one_line(tmp_path):
+    """--voxel_sp --voxel_kplanes trains (tests/test_torch_factor_sp.py), but
+    with --voxel_dp, the dense family's hybrid mesh, it is refused in one
+    line before anything loads, as JAX refuses it."""
     from focnerf_tpu_torch.apps import main_voxel
 
-    with pytest.raises(NotImplementedError, match="--voxel_sp --voxel_kplanes") as e:
-        main_voxel.main(["scene", "--workspace", str(tmp_path / "w"), "--voxel_sp", "--voxel_kplanes", "2"],
-                        device="cpu")
-    assert "\n" not in str(e.value) and "next slice" in str(e.value)
+    with pytest.raises(ValueError, match="drop --voxel_dp") as e:
+        main_voxel.main(["scene", "--workspace", str(tmp_path / "w"), "--voxel_sp", "--voxel_kplanes", "2",
+                         "--voxel_dp", "2"], device="cpu")
+    assert "\n" not in str(e.value) and "--voxel_sp --voxel_kplanes" in str(e.value)
+    assert not (tmp_path / "w").exists()
 
 
 _ORPHAN = r"""
