@@ -1159,17 +1159,21 @@ MARCH_SLABS = (128, 32, 16)  # the -O slab buckets [kernel-march] holds the kern
 ITER_RAYS, ITER_SUB_SLAB, ITER_MAX_ITERS = 65536, 16, 24  # the iterative eval round's march
 
 
-def march_check(tag: str, rays_o, rays_d, nears, fars, skip, time_it: bool = False, plain_iters: int = 3, **kw):
+def march_check(tag: str, rays_o, rays_d, nears, fars, skip, time_it: bool = False, plain_iters: int = 3,
+                load_ns: float = 0.0, **kw):
     """The skip-walk kernel against the plain walk on the same inputs: ts,
     dts, valid and count must be equal bit for bit. With ``time_it``: the
-    kernel's device time, the plain walk's (device and span: its host reads
-    every 4 iterations are in the span) and the bound, the bytes the walk
-    must move (each ray's inputs, one skip byte per iteration the rays run,
-    the [N, slab] outputs) at HBM_BYTES_PER_S. Returns a dict of the numbers."""
+    kernel's own device time (without the wrapper's jitter and zero fill),
+    the plain walk's (device and span: its host reads
+    every 4 iterations are in the span), the byte bound (each ray's inputs,
+    one skip byte per iteration the rays run, the [N, slab] outputs at
+    HBM_BYTES_PER_S) and the latency bound (the longest ray's leaps + 1
+    dependent reads at ``load_ns`` each: a leap's landing depends on its
+    read). Returns a dict of the numbers."""
     import torch
 
     from focnerf_tpu_torch.ops.marching import march_rays_skip, march_skip_plain
-    from focnerf_tpu_torch.utils.measure import device_ms
+    from focnerf_tpu_torch.utils.measure import device_ms, kernel_ms
 
     got = march_rays_skip(rays_o, rays_d, nears, fars, skip, **kw)
     want = march_skip_plain(rays_o, rays_d, nears, fars, skip, **kw)
@@ -1178,41 +1182,54 @@ def march_check(tag: str, rays_o, rays_d, nears, fars, skip, time_it: bool = Fal
     err = float((got.ts - want.ts).abs().max())
     n, slab = got.ts.shape
     walked = int(got.ray_iters.sum())
+    leaps = got.ray_iters.long() - got.count
     out = {"err": err, "rays": n, "slab": slab, "mean_count": float(got.count.float().mean()),
+           "mean_leaps": float(leaps.float().mean()), "max_leaps": int(leaps.max()),
            "iters": int(got.iters), "plain_iters": want.iters, "walked": walked}
     if not all(same.values()):
         r = int((got.ts != want.ts).any(-1).nonzero()[0]) if not same["ts"] else -1
         raise AssertionError(f"[kernel-march] {tag}: kernel and plain walk differ {same} (max |ts| error {err}; "
                              f"first ray {r})")
+    if int(got.iters) != int(got.ray_iters.max()) or bool((leaps < 0).any()):
+        raise AssertionError(f"[kernel-march] {tag}: iters {int(got.iters)}, ray_iters max "
+                             f"{int(got.ray_iters.max())}, fewer iterations than samples {int((leaps < 0).sum())}")
     line = (f"[kernel-march] march_rays_skip {tag} [{n} rays, slab {slab}]: ts, dts, valid, count equal bit for "
-            f"bit; mean count {out['mean_count']:.1f}, longest walk {out['iters']} iterations (plain walk "
-            f"{want.iters}), {walked} iterations over all rays")
+            f"bit; mean samples {out['mean_count']:.1f} and leaps {out['mean_leaps']:.1f} a ray (most leaps "
+            f"{out['max_leaps']}), longest walk {out['iters']} iterations (plain walk {want.iters}), {walked} "
+            "iterations over all rays")
     if time_it:
-        ms, span = device_ms(lambda: march_rays_skip(rays_o, rays_d, nears, fars, skip, **kw))
+        ms, events = kernel_ms(lambda: march_rays_skip(rays_o, rays_d, nears, fars, skip, **kw), "march_skip_kernel")
+        _, span = device_ms(lambda: march_rays_skip(rays_o, rays_d, nears, fars, skip, **kw))
         plain_ms, plain_span = device_ms(lambda: march_skip_plain(rays_o, rays_d, nears, fars, skip, **kw),
                                          iters=plain_iters)
         nbytes = n * 32 + walked + n * (9 * slab + 12)
-        out.update(ms=ms, span=span, plain_ms=plain_ms, plain_span=plain_span, bytes=nbytes,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-        line += (f"; device {ms:.5f} ms (call span {span:.4f} ms), plain walk device {plain_ms:.4f} ms (span "
-                 f"{plain_span:.2f} ms), bound {out['bound_ms']:.5f} ms ({nbytes} B)")
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        latency_ms = (out["max_leaps"] + 1) * load_ns * 1e-6
+        out.update(ms=ms, span=span, plain_ms=plain_ms, plain_span=plain_span, bytes=nbytes, bound_ms=byte_ms,
+                   latency_bound_ms=latency_ms, walk_bound_ms=max(byte_ms, latency_ms),
+                   walk_bound_by="latency" if latency_ms > byte_ms else "bytes")
+        line += (f"; kernel {ms:.5f} ms ({events} of 100 launches traced; call span {span:.4f} ms), plain walk "
+                 f"device {plain_ms:.4f} ms (span "
+                 f"{plain_span:.2f} ms); bounds: bytes {byte_ms:.5f} ms ({nbytes} B), latency "
+                 f"{latency_ms:.5f} ms ({out['max_leaps'] + 1} dependent reads x {load_ns:.1f} ns), bound by "
+                 f"{out['walk_bound_by']} ({ms / out['walk_bound_ms']:.1f}x the bound)")
     print(line)
     return out
 
 
-def phase_march_kernel(trainer, ds, val_ds, dev) -> dict:
-    """``[kernel-march]``: the skip-walk kernel against the plain walk, bit
-    for bit, on phase 5's trained skip field: the -O training shape (4096
-    rays of a batch, dt_gamma 1/128, the start jittered) at the slabs 128,
-    32 and 16; the iterative eval round's start (no jitter: ITER_RAYS rays of
-    a val view from their near, then from where their first round stopped,
-    sub-slab ITER_SUB_SLAB, and once more under a cap of ITER_MAX_ITERS;
-    the view's middle rows, through the object).
-    Timed at slab 128 (the kernels line's numbers) and 16 and at the round's
-    start. Returns the kernels line's entry."""
+def march_cases(trainer, ds, val_ds, dev) -> list:
+    """``[kernel-march]``'s inputs on phase 5's trained skip field, as
+    (tag, (rays_o, rays_d, nears, fars, skip), kw, timed): the -O training
+    shape (4096 rays of a batch, dt_gamma 1/128, the start jittered) at the
+    slabs MARCH_SLABS, timed at 128 and 16; the iterative eval round's start
+    (no jitter: ITER_RAYS rays of a val view from their near, the view's
+    middle rows, through the object; timed), then from where their first
+    round stopped, sub-slab ITER_SUB_SLAB, and once more under a cap of
+    ITER_MAX_ITERS."""
     import torch
 
     from focnerf_tpu_torch.core.geometry import near_far_from_aabb
+    from focnerf_tpu_torch.ops.marching import march_rays_skip
     from focnerf_tpu_torch.render.renderer import default_aabb, padded_rays
 
     cfg = trainer.cfg
@@ -1224,37 +1241,54 @@ def phase_march_kernel(trainer, ds, val_ds, dev) -> dict:
     near, far = near_far_from_aabb(o, d, aabb, trainer.min_near)
     noise = torch.rand(o.shape[0], generator=gen, device=dev)
     kw = dict(bound=cfg.bound, dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps)
-    rows = {}
-    for slab in MARCH_SLABS:
-        rows[slab] = march_check(f"-O training batch, jittered, dt_gamma {trainer.dt_gamma:g}", o, d, near, far,
-                                 skip, time_it=slab in (128, 16), noise=noise, slab=slab, **kw)
+    cases = [(f"-O training batch, jittered, dt_gamma {trainer.dt_gamma:g}", (o, d, near, far, skip),
+              dict(kw, noise=noise, slab=slab), slab in (128, 16)) for slab in MARCH_SLABS]
     ro, rd = padded_rays(val_ds.poses[0], val_ds.intrinsics, val_ds.H, val_ds.W, ITER_RAYS, dev)
     mid = (val_ds.H * val_ds.W - ITER_RAYS) // 2  # the view's middle rows: through the object
     o, d = ro[mid:mid + ITER_RAYS].contiguous(), rd[mid:mid + ITER_RAYS].contiguous()
     near, far = near_far_from_aabb(o, d, aabb, trainer.min_near)
-    first = march_check("iterative round 1 (a val view, from the near, no jitter)", o, d, near, far, skip,
-                        time_it=True, plain_iters=2, slab=ITER_SUB_SLAB, **kw)
-    from focnerf_tpu_torch.ops.marching import march_rays_skip
-
+    cases.append(("iterative round 1 (a val view, from the near, no jitter)", (o, d, near, far, skip),
+                  dict(kw, slab=ITER_SUB_SLAB), True))
     m = march_rays_skip(o, d, near, far, skip, slab=ITER_SUB_SLAB, **kw)
     last = torch.clamp(m.count - 1, min=0)[:, None]
     t_cur = torch.where(m.count > 0, (m.ts.gather(1, last) + m.dts.gather(1, last))[:, 0], far)
-    rounds = [first,
-              march_check("iterative round 2 (from where round 1 stopped)", o, d, t_cur, far, skip,
-                          slab=ITER_SUB_SLAB, **kw),
-              march_check(f"iterative round 2 under max_iters {ITER_MAX_ITERS}", o, d, t_cur, far, skip,
-                          slab=ITER_SUB_SLAB, max_iters=ITER_MAX_ITERS, **kw)]
-    row = rows[128]
+    cases += [("iterative round 2 (from where round 1 stopped)", (o, d, t_cur, far, skip),
+               dict(kw, slab=ITER_SUB_SLAB), False),
+              (f"iterative round 2 under max_iters {ITER_MAX_ITERS}", (o, d, t_cur, far, skip),
+               dict(kw, slab=ITER_SUB_SLAB, max_iters=ITER_MAX_ITERS), False)]
+    return cases
+
+
+def phase_march_kernel(trainer, ds, val_ds, dev) -> dict:
+    """``[kernel-march]``: the card's dependent-load latency over a buffer
+    the size of the skip field, then the skip-walk kernel against the plain
+    walk, bit for bit, on ``march_cases``. Returns the kernels line's entry,
+    with the -O slab-128 case's numbers."""
+    from focnerf_tpu_torch.utils.measure import dependent_load_ns
+
+    cases = march_cases(trainer, ds, val_ds, dev)
+    nbytes = cases[0][1][4].numel()
+    load_ns = dependent_load_ns(nbytes, dev)
+    print(f"[kernel-march] dependent-load latency: {load_ns:.2f} ns a load (one thread chasing a random cycle "
+          f"through {nbytes} B, L2-resident)")
+    rows = [march_check(tag, *args, time_it=timed, plain_iters=2 if "iterative" in tag else 3, load_ns=load_ns,
+                        **kw) for tag, args, kw, timed in cases]
+    row = rows[0]
     return {
         "name": "march_rays_skip",
         "route": "cuda",
         "source": "focnerf_tpu_torch/csrc/march_skip.cu",
         "replaces": "focnerf_tpu/ops/marching.py:160 (an XLA while_loop; no Pallas kernel)",
-        "max_abs_err": max(r["err"] for r in (*rows.values(), *rounds)),
+        "max_abs_err": max(r["err"] for r in rows),
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": "bytes",
+        # the walk's own bound: its leaps' dependent reads (see march_check)
+        "latency_bound_ms": row["latency_bound_ms"],
+        "walk_bound_ms": row["walk_bound_ms"],
+        "walk_bound_by": row["walk_bound_by"],
+        "load_ns": load_ns,
         "library_ms": None,  # no PyTorch call walks a skip field
     }
 
@@ -3193,17 +3227,16 @@ def dnerf_reference_batch(seed: int, t: float, n: int = 512):
     }
 
 
-def phase_march_dnerf(trainer, dev) -> float:
-    """``[kernel-march]`` on D-NeRF's time grid: the kernel against the plain
-    walk on the trained field's skip field of the slots at t = 0.25 and
-    0.75, 4096 jittered rays at the training slab, as the D-NeRF step
-    marches. Returns the largest |ts| difference (0: equal)."""
+def dnerf_march_cases(trainer, dev) -> list:
+    """``march_cases``' form for D-NeRF's time grid: the trained field's
+    skip field of the slots at t = 0.25 and 0.75, 4096 jittered rays at the
+    training slab, as the D-NeRF step marches."""
     import torch
 
     from focnerf_tpu_torch.core.geometry import near_far_from_aabb
     from focnerf_tpu_torch.render.renderer import default_aabb
 
-    errs = []
+    cases = []
     for seed, t in ((21, 0.25), (22, 0.75)):
         _, b = dnerf_reference_batch(seed, t, n=CHUNK)
         b = {k: v.to(dev) for k, v in b.items()}
@@ -3211,11 +3244,18 @@ def phase_march_dnerf(trainer, dev) -> float:
         o, d = b["rays_o"], b["rays_d"]
         near, far = near_far_from_aabb(o, d, default_aabb(trainer.cfg, dev), trainer.min_near)
         noise = torch.rand(CHUNK, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
-        errs.append(march_check(f"D-NeRF time grid, t = {t} (slot {int(b['time'] * trainer.time_slots)} of "
-                                f"{trainer.time_slots}), jittered", o, d, near, far, skip,
-                                bound=trainer.cfg.bound, dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps,
-                                slab=trainer.train_slab, noise=noise)["err"])
-    return max(errs)
+        cases.append((f"D-NeRF time grid, t = {t} (slot {int(b['time'] * trainer.time_slots)} of "
+                      f"{trainer.time_slots}), jittered", (o, d, near, far, skip),
+                      dict(bound=trainer.cfg.bound, dt_gamma=trainer.dt_gamma, max_steps=trainer.max_steps,
+                           slab=trainer.train_slab, noise=noise), False))
+    return cases
+
+
+def phase_march_dnerf(trainer, dev) -> float:
+    """``[kernel-march]`` on D-NeRF's time grid (``dnerf_march_cases``): the
+    kernel against the plain walk. Returns the largest |ts| difference (0:
+    equal)."""
+    return max(march_check(tag, *args, **kw)["err"] for tag, args, kw, _ in dnerf_march_cases(trainer, dev))
 
 
 def dnerf_step_card_vs_cpu(params0, cfg, batch, draws, kw, skip=None, unmasked=False) -> dict:

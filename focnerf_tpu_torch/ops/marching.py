@@ -14,8 +14,9 @@ dt_max)``:
     space by whole recurrence steps, until every ray has its slab or has
     left the volume. On CPU tensors it is the plain walk,
     ``march_skip_plain``; on CUDA tensors it launches ``csrc/march_skip.cu``
-    (one thread walks one ray to its end, no host read: a CUDA graph holds
-    it) or raises. The kernel's samples equal the plain walk's bit for bit.
+    (a group of lanes walks one ray to its end, reading the skip codes of a
+    run's next lattice points at once; no host read: a CUDA graph holds it)
+    or raises. The kernel's samples equal the plain walk's bit for bit.
 
 Training jitters each ray's start: ``noise`` [N] uniforms move t0 by
 ``noise * dt(t0)``, as the JAX package's ``perturb`` does with its own draw.
@@ -169,11 +170,12 @@ def march_rays_skip(
 
     CPU tensors take the plain walk. CUDA tensors take the kernel, one launch
     counted in ``march_rays_skip.launches``: the start ``t0`` is the plain
-    walk's torch expression, then one thread walks each ray to its end, so
-    ``ts``, ``dts``, ``valid`` and ``count`` equal the plain walk's bit for
-    bit. Its ``iters`` is the longest ray's iteration count, an int32 device
-    scalar read by nobody inside the walk; the plain walk's is a host int
-    that counts in steps of 4 (its host check), so the two differ by up to 3.
+    walk's torch expression, then a group of ``march_lanes(n, slab)`` lanes
+    walks each ray to its end, so ``ts``, ``dts``, ``valid`` and ``count``
+    equal the plain walk's bit for bit. Its ``iters`` is the longest ray's
+    iteration count, an int32 device scalar read by nobody inside the walk;
+    the plain walk's is a host int that counts in steps of 4 (its host
+    check), so the two differ by up to 3.
     """
     if not rays_o.is_cuda:
         if rays_o.device.type != "cpu":
@@ -203,6 +205,19 @@ def _recip(x: float) -> float:
     return float(np.float32(1.0 / x))
 
 
+def march_lanes(n: int, slab: int):
+    """(lanes, ramp) of the kernel's walk for ``n`` rays of ``slab``: a group
+    of ``lanes`` walks a ray, and a round after a leap is ``ramp`` lanes wide
+    (doubled by each round that samples all its lanes). Measured on the
+    H100 (PERF.md §6): 8 lanes, ramp 2 at slab 128 (the -O batch and
+    D-NeRF's); 2 lanes, ramp 1 at slabs 16 and 32, where walks are mostly
+    leaps; one lane from 32768 rays up (the iterative round's 65536), where
+    a group's idle lanes cost more than its speculation saves."""
+    if n >= 32768:
+        return 1, 1
+    return (8, 2) if slab >= 64 else (2, 1)
+
+
 def _march_skip_launch(rays_o, rays_d, t0, fars, occ_skip, *, bound: float, dt_gamma: float, dt_min: float,
                        dt_max: float, slab: int, grid_size: int, max_iters: int) -> MarchResult:
     """Checks the operands, then launches ``focnerf_march_skip`` on the
@@ -226,6 +241,9 @@ def _march_skip_launch(rays_o, rays_d, t0, fars, occ_skip, *, bound: float, dt_g
             raise ValueError(f"{name}: need {dtype} on {device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {shape}, got {tuple(t.shape)}")
+    if cascades * grid_size**3 >= 2**31:
+        raise ValueError(f"occ_skip: {cascades} x {grid_size}^3 cells overflow the kernel's int32 cell index")
+    lanes, ramp = march_lanes(n, slab)
     out_t = torch.empty((n, slab), dtype=torch.float32, device=device)
     out_dt = torch.empty((n, slab), dtype=torch.float32, device=device)
     valid = torch.empty((n, slab), dtype=torch.bool, device=device)
@@ -235,7 +253,7 @@ def _march_skip_launch(rays_o, rays_d, t0, fars, occ_skip, *, bound: float, dt_g
     fn = load_library("march_skip").focnerf_march_skip
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 15 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 15 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p] * 7)
     geometric = dt_gamma > 0.0
     err = fn(
@@ -244,7 +262,7 @@ def _march_skip_launch(rays_o, rays_d, t0, fars, occ_skip, *, bound: float, dt_g
         _recip(math.log(1.0 + dt_gamma)) if geometric else 0.0, _f32(1.0 + dt_gamma),
         _f32(dt_min / dt_gamma) if geometric else 0.0, _f32(dt_max / dt_gamma) if geometric else 0.0,
         float(grid_size), _f32(SQRT3), _f32(1e-3), _f32(1e-12), _f32(1e-6),
-        grid_size, cascades, slab, max_iters, int(geometric), n,
+        grid_size, cascades, slab, max_iters, int(geometric), lanes, ramp, n,
         out_t.data_ptr(), out_dt.data_ptr(), valid.data_ptr(), count.data_ptr(), ray_iters.data_ptr(),
         iters.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )

@@ -6,6 +6,10 @@
   - ``device_ms``: a function's device time per call, and its CUDA-event span;
   - ``counted_device_ms``: the same device time, with the events the trace
     recorded against the events it should hold;
+  - ``kernel_ms``: one kernel's device time per call of a function that
+    also launches others;
+  - ``dependent_load_ns``: the card's latency per dependent load from an
+    L2-resident buffer (a pointer chase);
   - ``seeded_model``: the full-width serving model from a seed, with a
     density grid equal to the field's sigma at every cell centre.
 """
@@ -100,6 +104,66 @@ def counted_device_ms(fn, iters: int = 50):
     events = _device(prof)
     ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
     return ms, len(events), per_call * iters
+
+
+def kernel_ms(fn, name: str, iters: int = 100):
+    """(device ms per call, events) of the kernels whose name holds ``name``
+    in a torch.profiler trace of ``iters`` calls of ``fn`` (after 5 warm-up
+    calls): that kernel's own time, without the other kernels ``fn``
+    launches. ``events`` is how many such kernels the trace recorded; a
+    trace that lost events reads low."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in _device(prof) if name in e.name]
+    if not events:
+        raise RuntimeError(f"torch.profiler recorded no kernel named {name!r}")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters, len(events)
+
+
+def dependent_load_ns(nbytes: int, device, steps: int = 200000, repeats: int = 3) -> float:
+    """ns per load of a chain of dependent loads through a buffer of
+    ``nbytes`` on the card: one thread follows a random cycle of int32
+    indices (``csrc/march_skip.cu``'s ``focnerf_load_chase``, loads cached in
+    L2 only), after a pass that leaves the buffer in L2. The fastest of
+    ``repeats`` runs of ``steps`` loads, timed with CUDA events."""
+    import ctypes
+
+    from focnerf_tpu_torch.ops._build import load_library
+
+    words = max(nbytes // 4, 2)
+    perm = torch.randperm(words, generator=torch.Generator().manual_seed(0))
+    nxt = torch.empty(words, dtype=torch.int64)
+    nxt[perm] = torch.roll(perm, -1)  # one cycle through every word
+    nxt = nxt.to(torch.int32).to(device)
+    out = torch.empty(1, dtype=torch.int32, device=device)
+    fn = load_library("march_skip").focnerf_load_chase
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def chase(k: int):
+        err = fn(nxt.data_ptr(), k, out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"load-chase kernel launch failed: cudaError {err}")
+
+    int(nxt.sum())  # the buffer into L2
+    chase(min(words, steps))
+    best = float("inf")
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        chase(steps)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) * 1e6 / steps)
+    return best
 
 
 def seeded_model(opt, device, seed: int = 0):

@@ -297,18 +297,53 @@ def _skip_field_and_rays(n: int, seed: int, device):
     return o, d, near, far, skip, noise, dict(bound=bound, grid_size=G, max_steps=1024)
 
 
+# (slab, dt_gamma, jitter, max_iters, field, start, rays): the -O and
+# iterative shapes; no dt growth; an iteration cap; on a field occupied
+# everywhere a run that reaches the slab (40), passes far or meets the cap in
+# the middle of a lane group; rays that start past far; slabs that are not a
+# multiple of the group (24 of 2 lanes, 100 of 8) and the smallest (8); the
+# iterative round's restart from where its first round stopped, under its
+# cap, at the iterative round's width (one lane a ray from 32768 rays)
+MARCH_CASES = [
+    (128, 1 / 128, True, 0, "shells", "near", 4096),
+    (16, 1 / 128, False, 0, "shells", "near", 4096),
+    (64, 0.0, True, 0, "shells", "near", 4096),
+    (32, 1 / 128, True, 20, "shells", "near", 4096),
+    (40, 1 / 128, True, 0, "occupied", "near", 4096),
+    (128, 1 / 128, False, 0, "occupied", "short", 4096),
+    (128, 1 / 128, True, 20, "occupied", "near", 4096),
+    (32, 1 / 128, True, 0, "shells", "past_far", 4096),
+    (24, 1 / 128, True, 0, "shells", "near", 4096),
+    (100, 1 / 128, True, 0, "shells", "near", 4096),
+    (8, 1 / 128, True, 0, "shells", "near", 4096),
+    (16, 1 / 128, False, 24, "shells", "restart", 32768),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("slab,dt_gamma,jitter,max_iters", [(128, 1 / 128, True, 0), (16, 1 / 128, False, 0),
-                                                            (64, 0.0, True, 0), (32, 1 / 128, True, 20)])
-def test_march_kernel_matches_plain_walk(slab, dt_gamma, jitter, max_iters):
+@pytest.mark.parametrize("slab,dt_gamma,jitter,max_iters,field,start,rays", MARCH_CASES)
+def test_march_kernel_matches_plain_walk(slab, dt_gamma, jitter, max_iters, field, start, rays):
     """The skip-walk kernel equals the plain walk on the card bit for bit
     (ts, dts, valid, count), one launch a walk, at the -O and iterative
-    shapes, without dt growth and under an iteration cap."""
+    shapes, without dt growth, under an iteration cap, and where a walk ends
+    in the middle of a lane group (MARCH_CASES)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the march kernel has no CPU mode")
     from focnerf_tpu_torch.ops import marching
 
-    o, d, near, far, skip, noise, kw = _skip_field_and_rays(4096, slab, "cuda")
+    o, d, near, far, skip, noise, kw = _skip_field_and_rays(rays, slab, "cuda")
+    if field == "occupied":
+        skip = torch.zeros_like(skip)
+    if start == "short":  # far within a few dozen steps of the near
+        far = torch.minimum(far, near + 0.3 * torch.rand(near.shape, device="cuda",
+                                                         generator=torch.Generator(device="cuda").manual_seed(3)))
+    past = torch.arange(near.shape[0], device="cuda") % 3 == 0
+    if start == "past_far":
+        near = torch.where(past, far + 0.1, near)
+    if start == "restart":
+        first = marching.march_rays_skip(o, d, near, far, skip, dt_gamma=dt_gamma, slab=slab, **kw)
+        last = torch.clamp(first.count - 1, min=0)[:, None]
+        near = torch.where(first.count > 0, (first.ts.gather(1, last) + first.dts.gather(1, last))[:, 0], far)
     kw.update(dt_gamma=dt_gamma, slab=slab, max_iters=max_iters, noise=noise if jitter else None)
     before = marching.march_rays_skip.launches
     got = marching.march_rays_skip(o, d, near, far, skip, **kw)
@@ -317,8 +352,57 @@ def test_march_kernel_matches_plain_walk(slab, dt_gamma, jitter, max_iters):
     assert marching.march_rays_skip.launches == before + 1
     for name in ("ts", "dts", "valid", "count"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert bool((got.ray_iters >= got.count).all())
     assert int(got.iters) == int(got.ray_iters.max()) > 0
     assert 0 <= want.iters - int(got.iters) < 4  # the plain walk counts in steps of 4
+    if start == "past_far":
+        assert int(got.count[past].max()) == 0 and int(got.ray_iters[past].max()) == 0
+    if field == "occupied" and start == "near":  # the longest walk ends on its slab or its cap
+        assert int(got.count.max()) == (min(slab, max_iters) if max_iters else slab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,ramp", [(1, 1), (2, 1), (2, 2), (4, 1), (4, 4), (8, 2), (16, 4), (32, 1), (32, 32)])
+def test_march_kernel_lane_groups_match_plain_walk(monkeypatch, lanes, ramp):
+    """Every lane group the kernel is built for, at every ramp, equals the
+    plain walk bit for bit (the wrapper's policy picks only some of them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the march kernel has no CPU mode")
+    from focnerf_tpu_torch.ops import marching
+
+    o, d, near, far, skip, noise, kw = _skip_field_and_rays(4096, 7, "cuda")
+    kw.update(dt_gamma=1 / 128, slab=72, noise=noise)
+    monkeypatch.setattr(marching, "march_lanes", lambda n, slab: (lanes, ramp))
+    got = marching.march_rays_skip(o, d, near, far, skip, **kw)
+    want = marching.march_skip_plain(o, d, near, far, skip, **kw)
+    torch.cuda.synchronize()
+    for name in ("ts", "dts", "valid", "count"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert int(got.iters) == int(got.ray_iters.max())
+
+
+@pytest.mark.cuda
+def test_march_kernel_replays_in_a_cuda_graph():
+    """The skip walk captured into a CUDA graph (as the fused dispatch
+    captures a step) replays to the plain walk's samples on new starts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the march kernel has no CPU mode")
+    from focnerf_tpu_torch.ops import marching
+
+    o, d, near, far, skip, noise, kw = _skip_field_and_rays(4096, 9, "cuda")
+    kw.update(dt_gamma=1 / 128, slab=128)
+    start = near.clone()
+    marching.march_rays_skip(o, d, start, far, skip, **kw)  # built and warm before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = marching.march_rays_skip(o, d, start, far, skip, **kw)
+    start.copy_(near + 0.05 * noise)
+    graph.replay()
+    want = marching.march_skip_plain(o, d, start, far, skip, **kw)
+    torch.cuda.synchronize()
+    for name in ("ts", "dts", "valid", "count"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])
