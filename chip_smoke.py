@@ -34,7 +34,19 @@ non-zero exit code and no result line:
      of the default full-width model (seeded weights; the density grid is
      the field's sigma at every cell centre) and
      ``main_nerf <scene> --test -O``; the renders must exist, and the
-     composite kernel must have run once per 4096-ray chunk of every view;
+     composite kernel must have run once per 4096-ray chunk of every view
+     and the encode kernel once per encode the model asked for;
+  4b. encode kernels (``[kernel-encode]``): the hash encode forward and
+     its position gradient (``csrc/hashgrid_fwd.cu``) against their plain
+     versions on the card, rows bit for bit, weights and out within a few
+     ulp, the position gradient within 1e-5 rel L2, with points on cell
+     faces and outside the cube: the -O training encode (4096 x 128
+     points, K 1 on 16 levels, residuals on), the exact serving encode at
+     the most points one of phase 4's ladder chunks encoded, an -O2 c2f
+     stage with grad_levels, the background grid (D = 2), and D-NeRF's
+     deform (D = 3) and hyper (D = 5) fields with the position gradient;
+     the kernels, the plain versions and their bounds timed at the -O,
+     serving and deform shapes;
   5. training: an analytic RGBA sphere scene at 800x800 with train, val and
      test splits and its object-mask sidecar (the sphere's alpha),
      ``main_nerf <scene> -O --iters 400`` at full width with its default
@@ -701,7 +713,7 @@ def table_grad_inputs(cfg, samples: int = 128, stochastic: bool = True, one_cell
     if stochastic:
         u = torch.rand((x01.shape[0], len(thg.stochastic_levels(spec)), 1, 3), generator=g, device=dev)
     table = torch.zeros((spec.table_rows, spec.level_dim), device=dev)
-    _, rows, weights = thg._encode(table, x01, spec, u, residuals=True)
+    _, rows, weights = thg.hashgrid_encode_forward(table, x01, spec, u, residuals=True)
     cot = torch.randn((x01.shape[0], spec.output_dim), generator=g, device=dev)
     return rows, weights, cot, thg.col_levels(spec, stochastic), spec.table_rows
 
@@ -905,6 +917,257 @@ def phase_uniform_shapes(cfg) -> list:
     return rows
 
 
+# the encode kernels against their plain versions on the card: rows bit for
+# bit; weights to ENCODE_W_REL relative + ENCODE_W_ABS (a few ulp: the D
+# factors multiplied in another order than torch's prod); out to
+# ENCODE_OUT_ABS of the table's largest |value| (2^D or K products summed in
+# another order); the position gradient to ENCODE_GX_REL relative L2
+ENCODE_W_REL, ENCODE_W_ABS, ENCODE_OUT_ABS, ENCODE_GX_REL = 1e-6, 1e-7, 1e-6, 1e-5
+
+
+def encode_points(spec, x, g):
+    """A copy of the points ``x`` [N, D] (on the card) with a twentieth moved
+    outside the unit cube and, on every level, N / (4 L) given one coordinate
+    on a cell face of that level (pos = x * scale + 0.5 on an integer) or one
+    ulp beside it: where a cell changes, the rows must still match."""
+    import torch
+
+    from focnerf_tpu_torch.ops.hashgrid import _level_scale
+
+    x = x.clone()
+    n, D = x.shape
+    dev = x.device
+    k, m = n // 20, n // 4 // spec.num_levels
+    x[:k] = torch.rand((k, D), generator=g, device=dev) * 2 - 0.5
+    i = k
+    for lvl in range(spec.num_levels):
+        scale = _level_scale(spec, lvl)
+        f = ((torch.randint(1, max(int(scale), 2), (m,), generator=g, device=dev).double() - 0.5) / scale).float()
+        side = torch.randint(0, 3, (m,), generator=g, device=dev)
+        f = torch.where(side == 1, torch.nextafter(f, torch.full_like(f, 2.0)), f)
+        f = torch.where(side == 2, torch.nextafter(f, torch.full_like(f, -1.0)), f)
+        x[torch.arange(i, i + m, device=dev), torch.randint(0, D, (m,), generator=g, device=dev)] = f
+        i += m
+    return x
+
+
+def _bound(nbytes: float, ops: float):
+    """(bound ms, "bytes" or "operations") on the H100 SXM's peaks."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def encode_check(label: str, spec, x, table, u=None, residuals: bool = True, select=None, time_it: bool = False):
+    """``hashgrid_encode_forward`` (the kernel) against ``encode_plain`` on
+    the card on the same operands, with and without residuals: rows bit for
+    bit (``select``: the grad_levels columns HashGridEncode keeps, taken from
+    both), weights and out to the limits above, out equal with and without
+    residuals, outside points at weight and value 0. ``time_it``: the kernel
+    (``residuals`` as the main path asks), the plain version and the bound:
+    each point's coordinates and draws read, each table row it touches read
+    once, out (and the residuals) written. Returns the numbers."""
+    import torch
+
+    from focnerf_tpu_torch.ops import hashgrid as thg
+    from focnerf_tpu_torch.utils.measure import device_ms, kernel_ms
+
+    out, rows, weights = thg.hashgrid_encode_forward(table, x, spec, u, residuals=True)
+    bare, _, _ = thg.hashgrid_encode_forward(table, x, spec, u, residuals=False)
+    pout, prows, pweights = thg.encode_plain(table, x, spec, u, residuals=True)
+    if select is not None:
+        rows, weights, prows, pweights = (t.index_select(1, select) for t in (rows, weights, prows, pweights))
+    torch.cuda.synchronize()
+    oob = ((x < 0) | (x > 1)).any(-1)
+    rows_equal = torch.equal(rows, prows)
+    w_ok = bool(((weights - pweights).abs() <= ENCODE_W_ABS + ENCODE_W_REL * pweights.abs()).all())
+    w_err = float((weights - pweights).abs().max())
+    err = float((out - pout).abs().max())
+    limit = ENCODE_OUT_ABS * float(table.abs().max())
+    zero = bool((weights[oob] == 0).all() and (out[oob] == 0).all())
+    n, J = rows.shape
+    res = {"err": err, "points": n, "columns": J}
+    line = (f"[kernel-encode] hashgrid_encode_forward {label} [{n} points, D={spec.input_dim}, {spec.num_levels} "
+            f"levels, J={J}]: rows {'equal bit for bit' if rows_equal else 'DIFFER'} "
+            f"({int((rows != prows).any(-1).sum())} points differ; {int(oob.sum())} outside the cube), weights "
+            f"max_abs_err {w_err:.3g} (limit {ENCODE_W_REL:g} relative + {ENCODE_W_ABS:g}), out max_abs_err {err:.3g} "
+            f"(limit {limit:.3g})")
+    if time_it:
+        with SMClocks() as clocks:
+            ms, events = kernel_ms(lambda: thg.hashgrid_encode_forward(table, x, spec, u, residuals=residuals),
+                                   "encode_kernel")
+            plain_ms, _ = device_ms(lambda: thg.encode_plain(table, x, spec, u, residuals=residuals), iters=10)
+        L, C, D = spec.num_levels, spec.level_dim, spec.input_dim
+        touched = int(torch.unique(rows).numel())
+        nbytes = (n * D * 4 + (0 if u is None else u.numel() * 4) + touched * C * 4 + n * L * C * 4
+                  + (n * J * 8 if residuals else 0))
+        bound_ms, by = _bound(nbytes, n * J * (D + 2 * C) + n * L * D * 3)
+        res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        line += (f"; device {ms:.5f} ms ({events} kernel events over 100 calls, residuals "
+                 f"{'on' if residuals else 'off'}), plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({by}, {nbytes} B, "
+                 f"{touched} table rows touched); {clocks.summary()}")
+    print(line)
+    if not (rows_equal and w_ok and err <= limit and zero and torch.equal(out, bare)):
+        raise AssertionError(f"encode kernel disagrees with encode_plain: {label}")
+    return res
+
+
+def input_grad_check(label: str, spec, x, table, g, time_it: bool = False):
+    """``hashgrid_input_grad`` (the kernel, which recomputes the rows from
+    the points) against ``input_grad_plain`` on the card: ENCODE_GX_REL rel
+    L2, two runs equal bit for bit, 0 outside the cube. ``time_it``: the
+    kernel, the plain version, and the bound (coordinates and cotangent
+    read, each table row touched once, counted from the forward kernel's
+    rows, the gradient written)."""
+    import torch
+
+    from focnerf_tpu_torch.ops import hashgrid as thg
+    from focnerf_tpu_torch.utils.measure import device_ms, kernel_ms
+
+    n, D = x.shape
+    L, C = spec.num_levels, spec.level_dim
+    cot = torch.randn((n, L * C), generator=g, device=x.device)
+    got = thg.hashgrid_input_grad(table, x, cot, spec)
+    again = thg.hashgrid_input_grad(table, x, cot, spec)
+    want = thg.input_grad_plain(table, x, cot, spec)
+    torch.cuda.synchronize()
+    oob = ((x < 0) | (x > 1)).any(-1)
+    rel = float((got - want).norm() / want.norm())
+    res = {"err": float((got - want).abs().max()), "rel": rel}
+    line = (f"[kernel-encode] hashgrid_input_grad {label} [{n} points, D={D}, {L} levels x {1 << D} corners]: "
+            f"rel L2 {rel:.3g} (limit {ENCODE_GX_REL:g}), max_abs_err {res['err']:.3g} of max|dL/dx| "
+            f"{float(want.abs().max()):.3g}; two runs {'equal' if torch.equal(got, again) else 'DIFFER'}")
+    if time_it:
+        with SMClocks() as clocks:
+            ms, events = kernel_ms(lambda: thg.hashgrid_input_grad(table, x, cot, spec), "input_grad_kernel")
+            plain_ms, _ = device_ms(lambda: thg.input_grad_plain(table, x, cot, spec), iters=5)
+        _, rows, _ = thg.hashgrid_encode_forward(table, x, spec, None, residuals=True)
+        J = rows.shape[1]
+        touched = int(torch.unique(rows).numel())
+        del rows
+        nbytes = n * D * 4 + cot.numel() * 4 + touched * C * 4 + n * D * 4
+        bound_ms, by = _bound(nbytes, n * J * (2 * C + D * D + 3 * D))
+        res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+        line += (f"; device {ms:.5f} ms ({events} kernel events over 100 calls), plain {plain_ms:.5f} ms, bound "
+                 f"{bound_ms:.5f} ms ({by}, {nbytes} B, {touched} table rows touched); {clocks.summary()}")
+    print(line)
+    if not (rel <= ENCODE_GX_REL and torch.equal(got, again) and bool((got[oob] == 0).all())):
+        raise AssertionError(f"position-gradient kernel disagrees with input_grad_plain: {label}")
+    return res
+
+
+def phase_encode_kernel(serve_points: int) -> list:
+    """``[kernel-encode]``: the encode kernel and the position-gradient kernel
+    against their plain versions on the card, at the main path's full-width
+    shapes, each with points on cell faces and outside the cube
+    (``encode_points``) and a U(-1, 1) table: the -O training encode
+    (4096 x 128 points, K 1 on all 16 levels, residuals on; timed), the
+    exact serving encode at ``serve_points`` (the most points one 4096-ray
+    ladder chunk of phase 4 encoded; residuals off, as serving asks; timed),
+    one -O2 c2f stage (8 levels, grad_levels 1, 3, 5, 7), the background
+    grid (D = 2, one chunk's 4096 rays), D-NeRF's deform field (D = 3) and
+    hyper field (D = 5) at 4096 x 128 points, each with the position
+    gradient (both timed; the kernels line takes deform's). Returns the
+    kernels line's two entries."""
+    import dataclasses
+
+    import torch
+
+    from focnerf_tpu_torch.config import parse_options
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def table_for(spec):
+        return torch.rand((spec.table_rows, spec.level_dim), generator=g, device=dev) * 2 - 1
+
+    def draws(spec, n):
+        return torch.rand((n, len(thg.stochastic_levels(spec)), spec.stochastic_k, spec.input_dim), generator=g,
+                          device=dev)
+
+    cfg = parse_options(["scene", "-O"]).nerf_config()
+    spec = cfg.grid_spec
+    table = table_for(spec)
+    x = encode_points(spec, ray_points01(cfg, 128, g), g)
+    train = encode_check(f"-O training encode (K {spec.stochastic_k} on every level)", spec, x, table,
+                         draws(spec, x.shape[0]), time_it=True)
+    exact = dataclasses.replace(spec, stochastic_k=0, stochastic_min_size=0)
+    xs = encode_points(exact, ray_points01(cfg, math.ceil(serve_points / CHUNK), g)[:serve_points], g)
+    encode_check("serving exact encode (one ladder chunk's points)", exact, xs, table, residuals=False, time_it=True)
+    del xs
+    o2 = parse_options(["scene", "-O2"]).nerf_config()
+    sub = dataclasses.replace(o2.grid_spec, grad_levels=(1, 3, 5, 7)).truncate(8)
+    cols = thg.col_levels(sub, True)
+    live = torch.tensor([j for j, lvl in enumerate(cols) if lvl in sub.grad_levels], device=dev)
+    encode_check("-O2 c2f stage of 8 levels, grad_levels (1, 3, 5, 7)", sub, x, table[: sub.table_rows],
+                 draws(sub, x.shape[0]), select=live)
+    del x, table
+    bg = cfg.bg_grid_spec
+    xb = encode_points(bg, torch.rand((CHUNK, 2), generator=g, device=dev), g)
+    encode_check("background grid (one chunk's 4096 rays)", bg, xb, table_for(bg))
+    grads = {}
+    for name, argv in (("deform", ["scene", "-O"]), ("hyper", ["scene", "-O", "--hyper"])):
+        dcfg = parse_options(argv).dnerf_config()
+        spec = dcfg.field_spec
+        x = ray_points01(dcfg, 128, g)
+        if spec.input_dim > 3:  # the hyper field's lifted coordinates, a sigmoid's range
+            lifted = torch.sigmoid(torch.randn((x.shape[0], spec.input_dim - 3), generator=g, device=dev))
+            x = torch.cat([x, lifted], -1)
+        x = encode_points(spec, x, g)
+        table = table_for(spec)
+        encode_check(f"D-NeRF {name} field", spec, x, table)
+        grads[name] = input_grad_check(f"D-NeRF {name} field", spec, x, table, g, time_it=True)
+        del x, table
+    common = {"route": "cuda", "source": "focnerf_tpu_torch/csrc/hashgrid_fwd.cu", "library_ms": None}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    return [
+        {"name": "hashgrid_encode_forward", **common,
+         "replaces": "focnerf_tpu/ops/hashgrid.py:360 (_encode_impl, left to XLA; no Pallas kernel)",
+         "max_abs_err": train["err"], **{k: train[k] for k in keys}},
+        {"name": "hashgrid_input_grad", **common,
+         "replaces": "focnerf_tpu/ops/hashgrid.py:462 (JAX autodiff of the input_grads=True encode; no Pallas kernel)",
+         "max_abs_err": max(r["err"] for r in grads.values()), **{k: grads["deform"][k] for k in keys}},
+    ]
+
+
+class EncodeCalls:
+    """Counts, while the block runs, the encodes the models ask for: every
+    call of ``models.nerf``'s and ``models.dnerf``'s hash-encode functions
+    (``density_fn``, ``background_fn``, the D-NeRF fields), with each call's
+    point count in ``points``. Each such call runs one encode forward."""
+
+    def __enter__(self):
+        from focnerf_tpu_torch.models import dnerf, nerf
+
+        self.points = []
+        self.patched = [(nerf, "hashgrid_encode_c2f"), (nerf, "hashgrid_encode"), (dnerf, "hashgrid_encode")]
+        self.real = [getattr(mod, name) for mod, name in self.patched]
+        for (mod, name), real in zip(self.patched, self.real):
+            setattr(mod, name, self._recording(real))
+        return self
+
+    def _recording(self, real):
+        def encode(table, x01, *args, **kwargs):
+            self.points.append(x01.numel() // x01.shape[-1])
+            return real(table, x01, *args, **kwargs)
+
+        return encode
+
+    def __exit__(self, *exc):
+        for (mod, name), real in zip(self.patched, self.real):
+            setattr(mod, name, real)
+
+
+def check_encodes(tag: str, launches: dict, at_least: int, position: int = 0):
+    """The encode kernel launched at least ``at_least`` times on a path that
+    encodes, the position-gradient kernel exactly ``position`` times (once a
+    D-NeRF deform or hyper step; 0 on every other path)."""
+    enc, pos = launches["hashgrid_encode_forward"], launches["hashgrid_input_grad"]
+    if not (enc >= at_least and pos == position):
+        raise AssertionError(f"{tag}: the encode kernel launched {enc} times (want at least {at_least}), the "
+                             f"position-gradient kernel {pos} (want {position})")
+
+
 def _ngp_to_nerf(ngp, scale: float):
     """Inverse of nerf_matrix_to_ngp at ``scale`` and zero offset."""
     import numpy as np
@@ -987,20 +1250,24 @@ def phase_serving(work: str, dev):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.time()
-    main_nerf.main(argv, device=dev)
-    torch.cuda.synchronize()
+    with EncodeCalls() as encodes:
+        main_nerf.main(argv, device=dev)
+        torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counts()
 
     check_renders(os.path.join(f"{ws}_background", "results"), VIEWS)
-    want = dict(composite_rays_fused=VIEWS * math.ceil(RES * RES / CHUNK), composite_rays_resume=0,
-                composite_rays_fused_backward=0, hashgrid_table_grad=0, march_rays_skip=0)
-    if launches != want:
-        raise AssertionError(f"serving launches {launches}, want {want}")
+    chunks = VIEWS * math.ceil(RES * RES / CHUNK)
+    want = dict(composite_rays_fused=chunks, composite_rays_resume=0, composite_rays_fused_backward=0,
+                hashgrid_table_grad=0, march_rays_skip=0, hashgrid_encode_forward=len(encodes.points),
+                hashgrid_input_grad=0)
+    if launches != want or len(encodes.points) < chunks:
+        raise AssertionError(f"serving launches {launches}, want {want} (at least one encode a chunk)")
     print(f"[serve] main_nerf --test -O: {VIEWS} views of {RES}x{RES} in {wall:.2f} s "
           f"({wall / VIEWS:.3f} s/view, first view includes warm-up), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {launches}")
-    return params, cfg, occupancy_bitfield(occ, opt.density_thresh)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {launches}; points an encode: mean "
+          f"{sum(encodes.points) / len(encodes.points):.0f}, most {max(encodes.points)}")
+    return params, cfg, occupancy_bitfield(occ, opt.density_thresh), max(encodes.points)
 
 
 def sphere_view(pose, fl: float, spheres=(SPHERE,), res: int = RES):
@@ -1129,6 +1396,7 @@ def phase_train(work: str, dev):
     if launches["march_rays_skip"] != steps + rounds:
         raise AssertionError(f"march_rays_skip launched {launches['march_rays_skip']} times, want once a step "
                              f"({steps}) and once an eval round ({rounds})")
+    check_encodes("training", launches, steps + rounds)  # a step's, an eval round's and the occupancy updates'
     if trainer.eval_renderer != "iter" or not launches["composite_rays_resume"] == rounds > 0:
         raise AssertionError(f"the {trainer.eval_renderer} eval ran {rounds} rounds, launches {launches}; "
                              "want the iterative renderer, one composite_rays_resume launch a round")
@@ -1150,6 +1418,7 @@ def phase_train(work: str, dev):
     want = VIEWS * math.ceil(RES * RES / CHUNK)
     if served["composite_rays_fused"] != want:
         raise AssertionError(f"trained serving launched {served}, want {want} composites")
+    check_encodes("trained serving", served, want)
     print(f"[train] main_nerf --test -O from the trained checkpoint: {VIEWS} views in {serve_s:.2f} s "
           f"({serve_s / VIEWS:.3f} s/view), launches {served}")
     return launches, trainer
@@ -1360,6 +1629,11 @@ def phase_fused(work: str, dev, smi: str, ds) -> dict:
             if not nk[name] == n1[name] == K:
                 raise AssertionError(f"[fused] {flags[0]}: {name} launched {nk[name]} (fused) / {n1[name]} times "
                                      f"in {K} steps, want once a step")
+        # the encode once a step, in the graphs as per step, and in the occupancy updates between chunks
+        if nk["hashgrid_encode_forward"] != n1["hashgrid_encode_forward"]:
+            raise AssertionError(f"[fused] {flags[0]}: the encode kernel launched {nk['hashgrid_encode_forward']} "
+                                 f"(fused) / {n1['hashgrid_encode_forward']} times")
+        check_encodes(f"[fused] {flags[0]} first chunk", nk, K)
         if not (cap == P and rep == K - P):
             raise AssertionError(f"[fused] {flags[0]}: {cap} captures and {rep} replays in {K} steps")
         if not (np.isfinite(lk).all() and loss_rel <= FUSED_LOSS_REL and table_rel <= FUSED_TABLE_REL):
@@ -1433,6 +1707,7 @@ def phase_fused(work: str, dev, smi: str, ds) -> dict:
                 or n["march_rays_skip"] != steps + o["rounds"]:
             raise AssertionError(f"[fused] --steps_per_dispatch {k}: launches {n} in {steps} steps and "
                                  f"{o['rounds']} eval rounds")
+        check_encodes(f"[fused] --steps_per_dispatch {k}", n, steps + o["rounds"])
         if not (np.isfinite(losses).all() and last < 0.5 * first):
             raise AssertionError(f"[fused] --steps_per_dispatch {k}: the loss did not halve ({first} -> {last})")
         if k > 1 and not o["graphs"][1] > 0:
@@ -1480,6 +1755,7 @@ def phase_reference(params, cfg, bits):
 
     from focnerf_tpu_torch.core.camera import rand_poses
     from focnerf_tpu_torch.ops.composite import composite_rays_fused
+    from focnerf_tpu_torch.ops.hashgrid import hashgrid_encode_forward
     from focnerf_tpu_torch.render.renderer import render_image
 
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)  # no bf16 flips
@@ -1494,10 +1770,10 @@ def phase_reference(params, cfg, bits):
         "uniform": (dict(num_steps=128), dict(num_steps=128)),
     }
     for path, (gpu_kw, cpu_kw) in paths.items():
-        composite_rays_fused.launches = 0
+        reset_counts()
         gpu, _ = render_image(params, cfg32, pose, intr, 96, 96, **common, **gpu_kw)
-        if composite_rays_fused.launches != 1:
-            raise AssertionError(f"reference {path}: {composite_rays_fused.launches} kernel launches, want 1")
+        if composite_rays_fused.launches != 1 or hashgrid_encode_forward.launches != 1:
+            raise AssertionError(f"reference {path}: {read_counts()}, want one composite and one encode launch")
         cpu, _ = render_image(cpu_params, cfg32, pose, intr, 96, 96, **common, **cpu_kw)
         if not torch.isfinite(gpu).all():
             raise AssertionError(f"reference {path}: non-finite render on the card")
@@ -1884,9 +2160,11 @@ def phase_train_reference(trainer, ds):
                 loss, _ = occupancy_loss(params, cfg, tb, to(skip), td, **kw)
             loss.backward()
             walks = int(kw.get("skip_field", False))  # the skip walk's kernel, once a march
+            encodes = 2 if kw.get("upsample_steps") else 1  # the importance samples' coarse pass encodes too
             if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
                                                          composite_rays_fused_backward=1, hashgrid_table_grad=1,
-                                                         march_rays_skip=walks):
+                                                         march_rays_skip=walks, hashgrid_encode_forward=encodes,
+                                                         hashgrid_input_grad=0):
                 raise AssertionError(f"reference {label} on the card launched {read_counts()}")
             out[where] = (float(loss.detach()), [p.grad.cpu() for p in param_leaves(params)])
         (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
@@ -1962,7 +2240,7 @@ def phase_uniform_train(work: str, dev, smi: str):
     provider.NeRFDataset = Kept
     t0 = time.time()
     try:
-        with SMClocks() as clocks:
+        with SMClocks() as clocks, EncodeCalls() as encodes:
             (trainer,) = main_nerf.main(argv, device=dev)
             torch.cuda.synchronize()
     finally:
@@ -1997,9 +2275,12 @@ def phase_uniform_train(work: str, dev, smi: str):
           f"map moved on {int(moved.sum())} of {em.shape[0]} views, {int(trained.sum())} of them trained (mean "
           f"{float(em.mean()):.4f}); mesh {faces} faces at density {trainer.density_thresh} (max density on a 64^3 "
           f"grid {sigma_max:.2f}); launches {launches}")
+    # the encode: twice a step and an eval chunk (the importance samples' coarse
+    # pass, then every sample), and once a slab of the mesh's density grid
     want = dict(composite_rays_fused=steps + eval_chunks, composite_rays_resume=0,
-                composite_rays_fused_backward=steps, hashgrid_table_grad=steps, march_rays_skip=0)
-    if launches != want:
+                composite_rays_fused_backward=steps, hashgrid_table_grad=steps, march_rays_skip=0,
+                hashgrid_encode_forward=len(encodes.points), hashgrid_input_grad=0)
+    if launches != want or len(encodes.points) < 2 * (steps + eval_chunks):
         raise AssertionError(f"uniform training launched {launches}, want {want}")
     if steps != UNIFORM_ITERS or not np.isfinite(losses).all() or not last < 0.5 * first:
         raise AssertionError(f"uniform training did not learn: {steps} steps, loss {first} -> {last}")
@@ -2075,6 +2356,7 @@ def phase_second_object(work: str, dev):
         raise AssertionError(f"-O2: composite backward launched {launches}, want {SECOND_ITERS}")
     if not launches["composite_rays_resume"]:
         raise AssertionError(f"-O2: the eval's iterative renderer launched no composite_rays_resume: {launches}")
+    check_encodes("-O2", launches, SECOND_ITERS)
     return ws, launches
 
 
@@ -2144,11 +2426,13 @@ def run_composition_cli(tag: str, name: str, mod, argv, out: str, dev, smi: str,
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.time()
-    with PlainCompositorGuard() as guard:
+    with PlainCompositorGuard() as guard, EncodeCalls() as encodes:
         frames = mod.main(argv, device=dev)
         torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counts()
+    if want is not None:  # every object's density, once a chunk: one encode launch a call
+        want = dict(want, hashgrid_encode_forward=len(encodes.points))
     peak = torch.cuda.max_memory_allocated() / 2**30
     views_ms, summary = read_composition_log(os.path.join(out, "log.txt"))
     print(f"[{tag}] {name}: K=2 objects, {len(frames)} val views of {RES}x{RES} in "
@@ -2183,7 +2467,7 @@ def phase_composition(work: str, dev, smi: str):
     root, scene = compose_layout(work, parse_options([work]).scale)
     chunks = math.ceil(RES * RES / CHUNK)
     want = dict(composite_rays_fused=chunks * VAL_VIEWS, composite_rays_resume=0, composite_rays_fused_backward=0,
-                hashgrid_table_grad=0, march_rays_skip=0)
+                hashgrid_table_grad=0, march_rays_skip=0, hashgrid_input_grad=0)
     runs, results = {}, {}
     for name, mod, edit in (("combined", combined, []),
                             ("editable", editable, ["--edit_object", SECOND, "--offset_x", "0.3"])):
@@ -2311,7 +2595,7 @@ def phase_compose_profile(loaded, march, pose):
 
     spans = collections.defaultdict(list)
     patched = [(compose, n) for n in ("near_far_from_aabb", "march_rays", "density_fn", "color_fn",
-                                      "encode_objfeat", "composite_rays_fused")] + [(nerf, "hashgrid_encode")]
+                                      "encode_objfeat", "composite_rays_fused")] + [(nerf, "hashgrid_encode_c2f")]
     saved = [(m, n, getattr(m, n)) for m, n in patched]
 
     def timed(name, fn):
@@ -2335,7 +2619,7 @@ def phase_compose_profile(loaded, march, pose):
             setattr(m, n, fn)
     stage = {n: sum(s.elapsed_time(e) for s, e in v) for n, v in spans.items()}
     print(f"[compose-profile] one {RES}x{RES} composed view (K=2, occupancy path), wall {wall:.1f} ms; event spans "
-          "(ms, share of wall; hashgrid_encode is inside density_fn): "
+          "(ms, share of wall; hashgrid_encode_c2f is inside density_fn): "
           + ", ".join(f"{n} {ms:.1f} ({ms / wall:.1%}, {len(spans[n])} calls)" for n, ms in
                       sorted(stage.items(), key=lambda kv: -kv[1])))
     # the profiled view is a sixteenth of the pixels (the same camera at a
@@ -2781,6 +3065,8 @@ def phase_voxel(work: str, dev, smi: str) -> dict:
                 "--iters", str(DYN_ITERS)] + flags
         _, launches, _, _ = run_voxel_cli(tag, argv, dev, smi)
         total = {k: total[k] + v for k, v in launches.items()}
+    if total["hashgrid_encode_forward"] or total["hashgrid_input_grad"]:
+        raise AssertionError(f"[voxel] the voxel runs launched an encode kernel: {total}")
     return total
 
 
@@ -3080,6 +3366,7 @@ def phase_dnerf(work: str, dev, smi: str):
         raise AssertionError(f"D-NeRF composite forward launched {launches} times in {steps} steps")
     if launches["march_rays_skip"] < steps:  # once a step, and once a chunk of the eval's views
         raise AssertionError(f"D-NeRF's skip walk launched {launches['march_rays_skip']} times in {steps} steps")
+    check_encodes("D-NeRF deform training", launches, steps, position=steps)  # the warp: a position gradient a step
     if steps != DNERF_ITERS or not np.isfinite(losses).all() or not last < 0.5 * first:
         raise AssertionError(f"D-NeRF training did not learn: {steps} steps, loss {first} -> {last}")
     if not psnr >= DNERF_PSNR:
@@ -3105,6 +3392,7 @@ def phase_dnerf(work: str, dev, smi: str):
           f"{'dnerf.mp4 ' + str(os.path.getsize(video)) + ' B' if os.path.exists(video) else 'as PNG frames'}")
     if not all(os.path.exists(p) for p in renders) or served["composite_rays_fused"] != want:
         raise AssertionError(f"D-NeRF --test: renders {renders}, launches {served}, want {want} composites")
+    check_encodes("D-NeRF --test", served, want)
     profiled_steps(trainer, DNeRFDataset(opt.dataset_options(), split="train", device=dev), 3, "dnerf-profile")
     return launches, trainer
 
@@ -3158,6 +3446,8 @@ def phase_dnerf_variants(work: str, dev, smi: str):
             raise AssertionError(f"dnerf {name}: loss {first} -> {last}")
         if launches["composite_rays_fused_backward"] != iters or launches["hashgrid_table_grad"] != iters:
             raise AssertionError(f"dnerf {name}: launches {launches}, want each backward once a step")
+        # deform and hyper learn through the encode's position gradient; basis encodes fixed points
+        check_encodes(f"dnerf {name}", launches, iters, position=0 if opt.dnerf_variant == "basis" else iters)
         del trainer, ds
 
 
@@ -3411,7 +3701,8 @@ def phase_dnerf_reference(trainer, dev):
         cases[f"{variant} -O step (seeded, levels 0-7 U(-0.1, 0.1))"] = (vcfg, seeded, occ_kw)
     for label, (cfg, params0, kw) in cases.items():
         want = dict(composite_rays_fused=1, composite_rays_resume=0, composite_rays_fused_backward=1,
-                    hashgrid_table_grad=1, march_rays_skip=0 if "num_steps" in kw else 1)
+                    hashgrid_table_grad=1, march_rays_skip=0 if "num_steps" in kw else 1, hashgrid_encode_forward=1,
+                    hashgrid_input_grad=0 if cfg.variant == "basis" else 1)
         draws = dnerf_step_draws(torch.Generator().manual_seed(3), n, "cpu", num_steps=kw.get("num_steps", 0))
         r = dnerf_step_card_vs_cpu(params0, cfg, batch, draws, kw, skip)
         m = r["masked"]
@@ -3472,7 +3763,7 @@ def phase_dnerf_kernel(dev):
     x = ray_points01(cfg, 128, g)
     x = torch.cat([x, torch.sigmoid(torch.randn((x.shape[0], cfg.hyper_dim), generator=g, device=dev))], -1)
     table = torch.zeros((spec.table_rows, spec.level_dim), device=dev)
-    _, rows, weights = thg._encode(table, x, spec, None, residuals=True)
+    _, rows, weights = thg.hashgrid_encode_forward(table, x, spec, None, residuals=True)
     del table
     cot = torch.randn((x.shape[0], spec.output_dim), generator=g, device=dev)
     cols, n_rows, C = thg.col_levels(spec, False), spec.table_rows, spec.level_dim
@@ -3844,6 +4135,7 @@ def phase_viewer(work: str, dev, smi: str):
         raise AssertionError(f"[viewer] non-finite loss while viewing: {losses}")
     if launches["hashgrid_table_grad"] != want or launches["composite_rays_fused_backward"] != want:
         raise AssertionError(f"[viewer] backward kernels launched {launches}, want once per step ({want})")
+    check_encodes("[viewer] train-while-viewing", launches, want + renders)
     if renders < 2 or not in_burst or launches["composite_rays_fused"] <= want:
         raise AssertionError(f"[viewer] {renders} renders between the steps, {len(in_burst)} inside a burst, "
                              f"launches {launches}")
@@ -4003,6 +4295,7 @@ def phase_no_preload(work: str, dev, smi: str, pre):
         raise AssertionError(f"[no-preload] backward kernels launched {launches}, want once per step")
     if launches["composite_rays_fused"] < len(losses):
         raise AssertionError(f"[no-preload] composite forward launched {launches} in {len(losses)} steps")
+    check_encodes("[no-preload]", launches, len(losses))
     if not (np.isfinite(losses).all() and last < first):
         raise AssertionError(f"[no-preload] loss {first} -> {last}")
 
@@ -4155,6 +4448,7 @@ def phase_clip(work: str, dev, smi: str, ds):
     if launches["hashgrid_table_grad"] != CLIP_ITERS or launches["composite_rays_fused_backward"] != CLIP_ITERS \
             or launches["composite_rays_fused"] < CLIP_ITERS:
         raise AssertionError(f"[clip] launches {launches}, want each backward kernel once a step ({CLIP_ITERS})")
+    check_encodes("[clip]", launches, CLIP_ITERS)
 
     # one CLIP step, card against CPU, fp32, from the trained weights
     cfg32 = dataclasses.replace(trainer.cfg, compute_dtype=torch.float32)
@@ -4174,7 +4468,8 @@ def phase_clip(work: str, dev, smi: str, ds):
         seconds[where] = time.time() - t0
         if where == "cuda" and read_counts() != dict(composite_rays_fused=1, composite_rays_resume=0,
                                                      composite_rays_fused_backward=1, hashgrid_table_grad=1,
-                                                     march_rays_skip=0):
+                                                     march_rays_skip=0, hashgrid_encode_forward=1,
+                                                     hashgrid_input_grad=0):
             raise AssertionError(f"[clip] the reference CLIP step on the card launched {read_counts()}")
         out[where] = (float(loss.detach()), grads)
     (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
@@ -4799,6 +5094,7 @@ def phase_parallel(work: str, dev, smi: str, trainer, ds) -> dict:
     for name in ("composite_rays_fused", "composite_rays_fused_backward", "hashgrid_table_grad"):
         if not launches[name] > 0:
             raise AssertionError(f"[parallel] {name} was not launched: {launches}")
+    check_encodes("[parallel]", launches, 1)
     if not max(r0["compose_err"].values()) <= PARALLEL_COMPOSE_MEAN or not 0.0 < r0["compose_alpha"]:
         raise AssertionError(f"[parallel] sharded composition: {r0['compose_err']}")
     if not (sp_rel <= PARALLEL_VOXEL_REL and sp["update_rel"] <= PARALLEL_VOXEL_REL):
@@ -4950,7 +5246,8 @@ def main() -> int:
     work = os.path.join(HERE, "workspace_chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     dev = torch.device("cuda")
-    params, cfg, bits = phase("serving", phase_serving, work, dev)
+    params, cfg, bits, serve_points = phase("serving", phase_serving, work, dev)
+    kernels += phase("encode kernel", phase_encode_kernel, serve_points)
     launches, trainer = phase("training", phase_train, work, dev)
     ds = train_dataset(os.path.join(work, "train_scene"), dev)
     val_ds = train_dataset(os.path.join(work, "train_scene"), dev, "val")

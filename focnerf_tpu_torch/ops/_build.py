@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build")
-KERNEL_SOURCES = ("composite", "hashgrid_bwd", "march_skip")
+KERNEL_SOURCES = ("composite", "hashgrid_bwd", "hashgrid_fwd", "march_skip")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -26,10 +26,17 @@ launches ``csrc/hashgrid_bwd.cu`` (the port of
 ``hashgrid_pallas.py::hashgrid_bwd_level``, all levels in one launch, a
 warp's duplicate rows summed before its atomics) or raises.
 
+The forward is ``hashgrid_encode_forward``: on CPU tensors its plain
+version ``encode_plain`` (a torch loop over the levels); on CUDA tensors it
+launches ``csrc/hashgrid_fwd.cu``'s encode kernel (a thread per point and
+level, the level table passed by value) or raises. JAX leaves this function
+to XLA (``_encode_impl``); no Pallas kernel stood there.
+
 When the points require grad, the backward also gives them theirs
-(``hashgrid_input_grad``, plain torch on either device): JAX's
-``input_grads=True`` encode, which the D-NeRF fields learn through. Such an
-encode is always exact, as JAX's is: it draws no corners.
+(``hashgrid_input_grad``): JAX's ``input_grads=True`` encode, which the
+D-NeRF fields learn through. On CPU tensors it is ``input_grad_plain``; on
+CUDA tensors the same source's position-gradient kernel. Such an encode is
+always exact, as JAX's is: it draws no corners.
 
 ``-O2``'s two levers and the TV term, as in the JAX twin:
 
@@ -223,9 +230,28 @@ def col_levels(spec: HashGridSpec, stochastic: bool) -> Tuple[int, ...]:
     return tuple(cols)
 
 
-def _encode(table, x01, spec: HashGridSpec, u: Optional[torch.Tensor], residuals: bool):
+def hashgrid_encode_forward(table, x01, spec: HashGridSpec, u: Optional[torch.Tensor], residuals: bool):
     """Shared forward -> (out [N, L*C], rows [N, J] int32 or None, weights
-    [N, J] or None); rows/weights only when ``residuals``."""
+    [N, J] or None); rows/weights only when ``residuals``, in the column
+    order of ``col_levels(spec, u is not None)``.
+
+    CPU tensors: ``encode_plain``. CUDA tensors: the encode kernel, one
+    launch counted in ``hashgrid_encode_forward.launches``; its rows equal
+    the plain version's bit for bit, its weights and out agree to a few ulp
+    (products and sums in index order; torch may reduce in another)."""
+    if not table.is_cuda:
+        if table.device.type != "cpu":
+            raise ValueError(f"hashgrid_encode_forward: unsupported device {table.device}")
+        return encode_plain(table, x01, spec, u, residuals)
+    return _encode_launch(table, x01, spec, u, residuals)
+
+
+hashgrid_encode_forward.launches = 0
+
+
+def encode_plain(table, x01, spec: HashGridSpec, u: Optional[torch.Tensor], residuals: bool):
+    """The plain version of ``hashgrid_encode_forward`` (a torch loop over
+    the levels), on any device."""
     x = x01.reshape(-1, spec.input_dim).float()
     n = x.shape[0]
     oob = ((x < 0.0) | (x > 1.0)).any(-1)
@@ -264,7 +290,7 @@ class HashGridEncode(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, x01, u, spec):
-        out, rows, weights = _encode(table, x01, spec, u, residuals=True)
+        out, rows, weights = hashgrid_encode_forward(table, x01, spec, u, residuals=True)
         ctx.spec = spec
         ctx.input_grad = ctx.needs_input_grad[1]
         if ctx.input_grad and u is not None:
@@ -295,10 +321,7 @@ class HashGridEncode(torch.autograd.Function):
                 d_table = hashgrid_table_grad(rows, weights, g, ctx.cols, ctx.n_rows,
                                               level_dim=ctx.level_dim)
         if ctx.input_grad:
-            # the position gradient reads every level's rows: recomputed when
-            # the forward kept only the live levels'
-            full = rows if ctx.spec.grad_levels is None else None
-            d_x = hashgrid_input_grad(table, x01, g, ctx.spec, rows=full).to(x01.dtype)
+            d_x = hashgrid_input_grad(table, x01, g, ctx.spec).to(x01.dtype)
         return d_table, d_x, None, None
 
 
@@ -308,19 +331,35 @@ def _corner_bits(D: int, device) -> torch.Tensor:
     return (corners[:, None] >> torch.arange(D, device=device)) & 1
 
 
-def hashgrid_input_grad(table: torch.Tensor, x01: torch.Tensor, g: torch.Tensor, spec: HashGridSpec,
-                        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+def hashgrid_input_grad(table: torch.Tensor, x01: torch.Tensor, g: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
     """d(loss)/d(x01), shaped as ``x01``, of the exact encode, from the
     output cotangent g [N, L*C]: for every level l and corner j,
     ``(g_l . table[rows_j]) * dw_j/dx``. The 2^D-linear weight is a product
     over axes, w_j = prod_d f_jd with f_jd = frac_d or 1 - frac_d, so
     ``dw_j/dx_d = scale_l * (+-1) * prod_{e != d} f_je``. Points outside
     [0, 1]^D get exactly 0 (their weights are 0 in the forward, as JAX masks
-    them). ``rows`` [N, L * 2^D]: the forward's exact-layout rows (None:
-    recomputed). JAX leaves this to XLA; here it is plain torch on either
-    device (the reference computes it in gridencoder.cu's
-    ``kernel_input_backward``)."""
-    D, K, C = spec.input_dim, 1 << spec.input_dim, spec.level_dim
+    them). The rows are recomputed from x01. JAX leaves this to XLA
+    (autodiff of the encode); the
+    reference computes it in gridencoder.cu's ``kernel_input_backward``.
+
+    CPU tensors: ``input_grad_plain``. CUDA tensors: the position-gradient
+    kernel of ``csrc/hashgrid_fwd.cu``, one launch counted in
+    ``hashgrid_input_grad.launches`` (levels added in order in each block:
+    deterministic)."""
+    if not table.is_cuda:
+        if table.device.type != "cpu":
+            raise ValueError(f"hashgrid_input_grad: unsupported device {table.device}")
+        return input_grad_plain(table, x01, g, spec)
+    return _input_grad_launch(table, x01, g, spec)
+
+
+hashgrid_input_grad.launches = 0
+
+
+def input_grad_plain(table: torch.Tensor, x01: torch.Tensor, g: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
+    """The plain version of ``hashgrid_input_grad`` (torch, a loop over the
+    levels), on any device."""
+    D, C = spec.input_dim, spec.level_dim
     x = x01.detach().reshape(-1, D).float()
     n = x.shape[0]
     oob = ((x < 0.0) | (x > 1.0)).any(-1)
@@ -334,10 +373,7 @@ def hashgrid_input_grad(table: torch.Tensor, x01: torch.Tensor, g: torch.Tensor,
         pos = x * scale + 0.5
         pos_grid = torch.floor(pos)
         frac = pos - pos_grid
-        if rows is None:
-            r = _coords_to_rows(pos_grid.to(torch.int64)[:, None, :] + bits[None], spec, lvl)
-        else:
-            r = rows[:, lvl * K : (lvl + 1) * K].long()
+        r = _coords_to_rows(pos_grid.to(torch.int64)[:, None, :] + bits[None], spec, lvl)
         gv = (table[r].float() * g[:, None, lvl * C : (lvl + 1) * C]).sum(-1)  # [N, K]
         f = torch.where(bits[None] > 0, frac[:, None, :], 1.0 - frac[:, None, :])  # [N, K, D]
         for d in range(D):
@@ -366,7 +402,7 @@ def hashgrid_encode(
     if grad:
         out = HashGridEncode.apply(table, x01, u, spec)
     else:
-        out, _, _ = _encode(table, x01, spec, u, residuals=False)
+        out, _, _ = hashgrid_encode_forward(table, x01, spec, u, residuals=False)
     return out.reshape(*prefix, spec.output_dim)
 
 
@@ -419,6 +455,14 @@ def _device_tuple(values: Tuple[int, ...], dtype: torch.dtype, device: torch.dev
     return torch.tensor(values, dtype=dtype, device=device)
 
 
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device):
+    """A kernel operand's device, dtype, shape and contiguity, or ValueError."""
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: need {dtype} on {device}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {shape}, got {tuple(t.shape)}")
+
+
 def hashgrid_table_grad(
     rows: torch.Tensor, weights: torch.Tensor, g: torch.Tensor, cols: Tuple[int, ...], n_rows: int,
     level_dim: Optional[int] = None,
@@ -465,10 +509,7 @@ def _table_grad_launch(rows, weights, g, col_level, n_rows: int, C: int):
         ("g", g, torch.float32, (n, g.shape[-1])),
         ("col_level", col_level, torch.int32, (J,)),
     ):
-        if t.device != rows.device or t.dtype != dtype:
-            raise ValueError(f"{name}: need {dtype} on {rows.device}, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {shape}, got {tuple(t.shape)}")
+        _check(name, t, dtype, shape, rows.device)
     if n_rows >= 2**31:
         raise ValueError(f"table of {n_rows} rows: int32 rows need fewer than 2^31")
     if C < 1 or g.shape[-1] % C:
@@ -491,3 +532,129 @@ def _table_grad_launch(rows, weights, g, col_level, n_rows: int, C: int):
 
 
 hashgrid_table_grad.launches = 0
+
+
+_MAX_LEVELS = 32  # csrc/hashgrid_fwd.cu's kMaxLevels
+
+
+class _LevelTable(ctypes.Structure):
+    """The encode kernels' level table, passed by value (csrc/hashgrid_fwd.cu
+    ``LevelTable``, field for field)."""
+
+    _fields_ = [
+        ("num_levels", ctypes.c_int),
+        ("input_dim", ctypes.c_int),
+        ("level_dim", ctypes.c_int),
+        ("k", ctypes.c_int),
+        ("n_stoch", ctypes.c_int),
+        ("total_cols", ctypes.c_int),
+        ("inv_k", ctypes.c_float),
+        ("scale", ctypes.c_float * _MAX_LEVELS),
+        ("offset", ctypes.c_uint32 * _MAX_LEVELS),
+        ("size", ctypes.c_uint32 * _MAX_LEVELS),
+        ("res1", ctypes.c_uint32 * _MAX_LEVELS),
+        ("hashed", ctypes.c_int * _MAX_LEVELS),
+        ("stoch", ctypes.c_int * _MAX_LEVELS),
+        ("col", ctypes.c_int * _MAX_LEVELS),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def level_table(spec: HashGridSpec, stochastic: bool) -> _LevelTable:
+    """The kernels' level table of ``spec``: each level's scale (``_level_scale``'s
+    fp32), offset, size, R + 1, hashed flag, index on the draws' axis 1 (-1:
+    exact; every level is exact unless ``stochastic``) and first residual
+    column (``col_levels``' order)."""
+    L = spec.num_levels
+    if not 1 <= L <= _MAX_LEVELS or not 1 <= spec.input_dim <= len(_PRIMES) or not 1 <= spec.level_dim <= 8:
+        raise ValueError(f"encode kernel: {L} levels (at most {_MAX_LEVELS}), input_dim {spec.input_dim} "
+                         f"(at most {len(_PRIMES)}), level_dim {spec.level_dim} (at most 8)")
+    if spec.table_rows >= 2**31:
+        raise ValueError(f"table of {spec.table_rows} rows: int32 rows need fewer than 2^31")
+    stoch = stochastic_levels(spec) if stochastic else ()
+    cols = col_levels(spec, stochastic)
+    K = spec.stochastic_k
+    lt = _LevelTable(num_levels=L, input_dim=spec.input_dim, level_dim=spec.level_dim, k=max(K, 0),
+                     n_stoch=len(stoch), total_cols=len(cols), inv_k=float(np.float32(1.0 / K)) if K > 0 else 0.0)
+    for lvl in range(L):
+        lt.scale[lvl] = _level_scale(spec, lvl)
+        lt.offset[lvl] = spec.offsets[lvl]
+        lt.size[lvl] = spec.level_size(lvl)
+        lt.res1[lvl] = spec.resolutions[lvl] + 1
+        lt.hashed[lvl] = int(spec.hashed[lvl])
+        lt.stoch[lvl] = stoch.index(lvl) if lvl in stoch else -1
+        lt.col[lvl] = cols.index(lvl)
+    return lt
+
+
+def _check_table(table: torch.Tensor, spec: HashGridSpec):
+    if table.dtype != torch.float32 or not table.is_contiguous() or table.dim() != 2 \
+            or table.shape[0] < spec.table_rows or table.shape[1] != spec.level_dim:
+        raise ValueError(f"table: need a contiguous float32 [>= {spec.table_rows}, {spec.level_dim}], got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    if spec.level_dim == 2 and table.data_ptr() % 8:
+        raise ValueError("table: two-channel rows must be 8-byte aligned (the kernels' float2 loads)")
+
+
+def _encode_launch(table, x01, spec: HashGridSpec, u, residuals: bool):
+    """Checks the operands, then launches ``focnerf_hashgrid_encode`` on the
+    current stream."""
+    from focnerf_tpu_torch.ops._build import load_library
+    from focnerf_tpu_torch.utils.flops import note_kernel_bytes
+
+    device = table.device
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    x = x01.reshape(-1, D).float().contiguous()
+    n = x.shape[0]
+    stoch = stochastic_levels(spec) if u is not None else ()
+    _check_table(table, spec)
+    _check("x01", x, torch.float32, (n, D), device)
+    if stoch:
+        _check("u", u, torch.float32, (n, len(stoch), spec.stochastic_k, D), device)
+    lt = level_table(spec, u is not None)
+    out = torch.empty((n, L * C), dtype=torch.float32, device=device)
+    rows = weights = None
+    if residuals:
+        rows = torch.empty((n, lt.total_cols), dtype=torch.int32, device=device)
+        weights = torch.empty((n, lt.total_cols), dtype=torch.float32, device=device)
+    fn = load_library("hashgrid_fwd").focnerf_hashgrid_encode
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [_LevelTable, ctypes.c_longlong] + [ctypes.c_void_p] * 4
+    err = fn(table.data_ptr(), x.data_ptr(), u.data_ptr() if stoch else None, lt, n, out.data_ptr(),
+             None if rows is None else rows.data_ptr(), None if weights is None else weights.data_ptr(),
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"encode kernel launch failed: cudaError {err}")
+    hashgrid_encode_forward.launches += 1
+    note_kernel_bytes(2.0 * n * lt.total_cols * C * 4)  # its table gathers, as utils/flops counts a gather
+    return out, rows, weights
+
+
+def _input_grad_launch(table, x01, g, spec: HashGridSpec):
+    """Checks the operands, then launches ``focnerf_hashgrid_input_grad`` on
+    the current stream."""
+    from focnerf_tpu_torch.ops._build import load_library
+    from focnerf_tpu_torch.utils.flops import note_kernel_bytes
+
+    device = table.device
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    x = x01.detach().reshape(-1, D).float().contiguous()
+    n = x.shape[0]
+    g = g.reshape(n, -1).float().contiguous()
+    _check_table(table, spec)
+    _check("x01", x, torch.float32, (n, D), device)
+    _check("g", g, torch.float32, (n, L * C), device)
+    lt = level_table(spec, False)
+    gx = torch.empty((n, D), dtype=torch.float32, device=device)
+    fn = load_library("hashgrid_fwd").focnerf_hashgrid_input_grad
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [_LevelTable, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+    err = fn(table.data_ptr(), x.data_ptr(), g.data_ptr(), lt, n, gx.data_ptr(),
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"position-gradient kernel launch failed: cudaError {err}")
+    hashgrid_input_grad.launches += 1
+    note_kernel_bytes(2.0 * n * (L << D) * C * 4)  # its table gathers, as utils/flops counts a gather
+    return gx.reshape(x01.shape)

@@ -18,8 +18,9 @@ inherit the mode). It counts the LOGICAL work of one execution:
   ``scatter_reduce``, ``index_copy``) read, modify and write their updates
   (3x). The ported table-gradient kernel is opaque to the dispatcher, so
   its wrapper reports its scatter, 3x the (point, column) contributions it
-  adds, through ``note_kernel_bytes``; the composite kernels stream their
-  rows and address nothing at random.
+  adds, through ``note_kernel_bytes``, and the encode kernels their table
+  gathers (2x the gathered rows' bytes, as a gather counts); the composite
+  kernels stream their rows and address nothing at random.
 
 ``dynamic_while`` is always False: an eager run executes every loop.
 """

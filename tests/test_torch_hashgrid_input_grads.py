@@ -74,17 +74,21 @@ def test_position_and_table_gradient_match_jax(dim, log2):
 
 
 def test_input_grad_recomputes_rows_and_skips_draws():
-    """``hashgrid_input_grad`` without the forward's rows recomputes them to
-    the same values; an encode with a point gradient draws no corners."""
+    """``HashGridEncode``'s backward, which keeps the forward's rows for the
+    table gradient, recomputes them for the position gradient: its gradient
+    equals ``hashgrid_input_grad`` from the points alone, also when
+    ``grad_levels`` keeps only some levels' rows; an encode with a point
+    gradient draws no corners."""
     import dataclasses
 
     _, tspec = _specs(3, 8)
     table, x, cot = _inputs(tspec, seed=5, lo=0.0, hi=1.0)
     tt, tx, g = torch.from_numpy(table), torch.from_numpy(x), torch.from_numpy(cot)
-    _, rows, _ = thg._encode(tt, tx, tspec, None, residuals=True)
-    a = thg.hashgrid_input_grad(tt, tx, g, tspec, rows=rows)
-    b = thg.hashgrid_input_grad(tt, tx, g, tspec)
-    assert torch.equal(a, b)
+    want = thg.hashgrid_input_grad(tt, tx, g, tspec)
+    for spec in (tspec, dataclasses.replace(tspec, grad_levels=(1, 3))):
+        xx = tx.clone().requires_grad_()
+        thg.HashGridEncode.apply(tt.clone().requires_grad_(), xx, None, spec).backward(g)
+        assert torch.equal(xx.grad, want)
     stoch = dataclasses.replace(tspec, stochastic_k=1)
     u = torch.rand(N, len(thg.stochastic_levels(stoch)), 1, 3)
     xg = tx.clone().requires_grad_()

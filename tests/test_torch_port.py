@@ -98,8 +98,10 @@ def test_kernel_module_imports_without_nvcc(monkeypatch):
     assert composite.composite_rays_fused_backward.launches >= 0
     assert composite.composite_rays_resume.launches >= 0
     assert hashgrid.hashgrid_table_grad.launches >= 0
+    assert hashgrid.hashgrid_encode_forward.launches >= 0
+    assert hashgrid.hashgrid_input_grad.launches >= 0
     assert marching.march_rays_skip.launches >= 0
-    assert _build.KERNEL_SOURCES == ("composite", "hashgrid_bwd", "march_skip")
+    assert _build.KERNEL_SOURCES == ("composite", "hashgrid_bwd", "hashgrid_fwd", "march_skip")
     for name in _build.KERNEL_SOURCES:
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
@@ -230,7 +232,7 @@ def test_table_grad_kernel_matches_index_add_on_card():
     x = torch.rand(20000, 3, generator=g)
     u = torch.rand(20000, spec.num_levels, 1, 3, generator=g)
     table = torch.zeros(spec.table_rows, spec.level_dim)
-    _, rows, weights = thg._encode(table, x, spec, u, residuals=True)
+    _, rows, weights = thg.hashgrid_encode_forward(table, x, spec, u, residuals=True)
     cot = torch.randn(20000, spec.output_dim, generator=g)
     cols = thg.col_levels(spec, True)
     want = thg.hashgrid_table_grad(rows, weights, cot, cols, spec.table_rows)
@@ -272,6 +274,160 @@ def test_position_gradient_on_card_matches_cpu(dim):
     # fp32 in another order: the finest level's scale (4095) times an ulp
     assert float((xg - xc).abs().max()) <= 1e-5 * float(xc.abs().max())
     assert float((tg - tc).abs().max()) <= 1e-5 * float(tc.abs().max())
+
+
+def _encode_points(spec, n: int, seed: int):
+    """n points in [0, 1]^D on the card, some outside the cube and some on
+    cell faces or one ulp beside them (``chip_smoke.encode_points``)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return chip_smoke.encode_points(spec, torch.rand((n, spec.input_dim), generator=g, device="cuda"), g)
+
+
+# (input_dim, K, stochastic_min_size, c2f active levels): exact D = 2, 3, 5;
+# K 1 on every level (-O's); K 2 on the hashed levels; K 1 mixed with exact
+# dense levels; a c2f stage's prefix of 8 levels
+ENCODE_CASES = [(2, 0, 0, 0), (3, 0, 0, 0), (5, 0, 0, 0), (3, 1, 1, 0), (3, 2, 0, 0), (3, 1, 1 << 17, 0),
+                (5, 1, 1, 0), (3, 1, 1, 8)]
+
+
+def _full_width_spec(dim: int, k: int = 0, min_size: int = 0):
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    spec = thg.HashGridSpec.create(num_levels=16, level_dim=2, log2_hashmap_size=19,
+                                   desired_resolution=2048 if dim < 5 else 4096, input_dim=dim)
+    return dataclasses.replace(spec, stochastic_k=k, stochastic_min_size=min_size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,k,min_size,active", ENCODE_CASES)
+def test_encode_kernel_matches_plain_on_card(dim, k, min_size, active):
+    """The encode kernel against ``encode_plain`` on the card, full-width
+    specs: rows bit for bit (faces included), weights and out to a few ulp
+    (products and sums in another order), with and without residuals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the encode kernel has no CPU mode")
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    spec = _full_width_spec(dim, k, min_size)
+    if active:
+        spec = spec.truncate(active)
+    n = 20000
+    x = _encode_points(spec, n, dim + k)
+    g = torch.Generator().manual_seed(dim)
+    table = (torch.rand(spec.table_rows, 2, generator=g) * 2 - 1).cuda()
+    stoch = thg.stochastic_levels(spec) if k else ()
+    u = torch.rand(n, len(stoch), k, dim, generator=g).cuda() if k else None
+    if min_size > 1:
+        assert 0 < len(stoch) < spec.num_levels
+    before = thg.hashgrid_encode_forward.launches
+    out, rows, weights = thg.hashgrid_encode_forward(table, x, spec, u, residuals=True)
+    bare, none_rows, none_weights = thg.hashgrid_encode_forward(table, x, spec, u, residuals=False)
+    torch.cuda.synchronize()
+    assert thg.hashgrid_encode_forward.launches == before + 2 and none_rows is None and none_weights is None
+    pout, prows, pweights = thg.encode_plain(table, x, spec, u, residuals=True)
+    assert torch.equal(rows, prows)
+    assert torch.equal(out, bare)
+    oob = ((x < 0) | (x > 1)).any(-1)
+    assert torch.all(weights[oob] == 0) and torch.all(out[oob] == 0)
+    torch.testing.assert_close(weights, pweights, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(out, pout, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_encode_kernel_feeds_the_grad_levels_backward_on_card():
+    """An -O2 phase (``grad_levels``) in a c2f stage: the kernel's residuals,
+    columns selected, through the table-gradient kernel, against the CPU's
+    plain path; the other levels' rows exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the encode kernel has no CPU mode")
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    spec = dataclasses.replace(_full_width_spec(3, 1, 1), grad_levels=(1, 3, 5, 7))
+    n, active = 20000, 8
+    x = _encode_points(spec.truncate(active), n, 7).cpu()
+    g = torch.Generator().manual_seed(7)
+    table = torch.rand(spec.table_rows, 2, generator=g) * 2 - 1
+    u = torch.rand(n, len(thg.stochastic_levels(spec.truncate(active))), 1, 3, generator=g)
+    cot = torch.randn(n, spec.output_dim, generator=g)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        t = table.to(where).requires_grad_()
+        before = thg.hashgrid_encode_forward.launches
+        (thg.hashgrid_encode_c2f(t, x.to(where), spec, active, u.to(where)) * cot.to(where)).sum().backward()
+        grads[where] = (t.grad.cpu(), thg.hashgrid_encode_forward.launches - before)
+    (got, launched), (want, _) = grads["cuda"], grads["cpu"]
+    assert launched == 1
+    assert torch.equal(got == 0, want == 0)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for lvl in range(spec.num_levels):
+        live = lvl in spec.grad_levels and lvl < active
+        assert live == bool((got[spec.offsets[lvl]:spec.offsets[lvl + 1]] != 0).any()), lvl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 5])
+def test_position_gradient_kernel_matches_plain_on_card(dim):
+    """The position-gradient kernel against ``input_grad_plain`` on the card:
+    1e-5 rel L2; exactly 0 outside the cube; two runs equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the position-gradient kernel has no CPU mode")
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    spec = _full_width_spec(dim)
+    n = 20000
+    x = _encode_points(spec, n, dim)
+    g = torch.Generator().manual_seed(dim)
+    table = (torch.rand(spec.table_rows, 2, generator=g) * 2 - 1).cuda()
+    cot = torch.randn(n, spec.output_dim, generator=g).cuda()
+    before = thg.hashgrid_input_grad.launches
+    got = thg.hashgrid_input_grad(table, x, cot, spec)
+    again = thg.hashgrid_input_grad(table, x, cot, spec)
+    torch.cuda.synchronize()
+    assert thg.hashgrid_input_grad.launches == before + 2
+    want = thg.input_grad_plain(table, x, cot, spec)
+    assert torch.equal(got, again)
+    oob = ((x < 0) | (x > 1)).any(-1)
+    assert torch.all(got[oob] == 0)
+    assert float((got - want).norm() / want.norm()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_encode_kernel_replays_in_a_cuda_graph():
+    """The encode (with residuals, K 1 draws) and the position gradient
+    captured into a CUDA graph (as the fused dispatch captures a step)
+    replay to the plain versions on new points and draws."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the encode kernels have no CPU mode")
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    spec = _full_width_spec(3, 1, 1)
+    exact = _full_width_spec(3)
+    n = 8192
+    g = torch.Generator().manual_seed(11)
+    table = (torch.rand(spec.table_rows, 2, generator=g) * 2 - 1).cuda()
+    x = _encode_points(spec, n, 11)
+    u = torch.rand(n, spec.num_levels, 1, 3, generator=g).cuda()
+    cot = torch.randn(n, spec.output_dim, generator=g).cuda()
+    thg.hashgrid_encode_forward(table, x, spec, u, residuals=True)  # built and warm before the capture
+    thg.hashgrid_input_grad(table, x, cot, exact)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = thg.hashgrid_encode_forward(table, x, spec, u, residuals=True)
+        got_gx = thg.hashgrid_input_grad(table, x, cot, exact)
+    x.copy_(_encode_points(spec, n, 12))
+    u.copy_(torch.rand(n, spec.num_levels, 1, 3, generator=g).cuda())
+    graph.replay()
+    want = thg.encode_plain(table, x, spec, u, residuals=True)
+    want_gx = thg.input_grad_plain(table, x, cot, exact)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    assert float((got_gx - want_gx).norm() / want_gx.norm()) <= 1e-5
 
 
 def _skip_field_and_rays(n: int, seed: int, device):

@@ -65,7 +65,7 @@ def test_stochastic_encode_matches_jax(k, min_size):
     u = _u(js, x.shape[0])
     table = np.random.default_rng(3).uniform(-1, 1, (js.table_rows, js.level_dim)).astype(np.float32)
     jout, jrows, jw = jhg._encode_impl(jnp.asarray(table), jnp.asarray(x), js, jnp.asarray(u))
-    tout, trows, tw = thg._encode(_t(table), _t(x), ts, _t(u), residuals=True)
+    tout, trows, tw = thg.hashgrid_encode_forward(_t(table), _t(x), ts, _t(u), residuals=True)
     assert thg.col_levels(ts, True) == tuple(
         lvl for lvl, (_, n) in enumerate(jhg._col_layout(js)) for _ in range(n)
     )

@@ -8,7 +8,8 @@ grid = the field's sigma at every cell centre, as chip_smoke.py does),
 warms up with one view, then renders one RES x RES view twice more:
 
   1. with CUDA events around each stage of ``render_rays_occupancy``
-     (near/far, march, hash encode, density = encode + sigma MLP, color,
+     (near/far, march, hash encode (``density_fn``'s ``hashgrid_encode_c2f``:
+     the encode kernel on the card), density = encode + sigma MLP, color,
      composite): the stages run in order on one stream, so each event span is
      that stage's device time plus any wait for the host inside it;
   2. under torch.profiler: the device's busy time (the union of the
@@ -95,7 +96,7 @@ def main(argv=None):
     wrap = _stage_timer(spans)
     patched = [
         (renderer, "near_far_from_aabb"), (renderer, "march_rays"), (renderer, "density_fn"),
-        (nerf, "hashgrid_encode"), (renderer, "color_fn"), (renderer, "composite_rays_fused"),
+        (nerf, "hashgrid_encode_c2f"), (renderer, "color_fn"), (renderer, "composite_rays_fused"),
     ]
     originals = [getattr(m, n) for m, n in patched]
     for (m, n), fn in zip(patched, originals):
