@@ -957,15 +957,26 @@ def _bound(nbytes: float, ops: float):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def encode_check(label: str, spec, x, table, u=None, residuals: bool = True, select=None, time_it: bool = False):
+def sector_bound_ms(spec, n: int, corners: int, l2_bytes_per_s: float) -> float:
+    """The least time the gathers of ``corners`` corners a level take
+    through L2 on n points: one 32-byte sector for every corner read on a
+    hashed level (its 8 bytes lie at a random row), over the card's L2 read
+    rate (``utils/measure.l2_read_bytes_per_s``)."""
+    return n * sum(spec.hashed) * corners * 32 / l2_bytes_per_s * 1e3
+
+
+def encode_check(label: str, spec, x, table, u=None, residuals: bool = True, select=None, time_it: bool = False,
+                 l2_rate: float = 0.0):
     """``hashgrid_encode_forward`` (the kernel) against ``encode_plain`` on
     the card on the same operands, with and without residuals: rows bit for
     bit (``select``: the grad_levels columns HashGridEncode keeps, taken from
     both), weights and out to the limits above, out equal with and without
     residuals, outside points at weight and value 0. ``time_it``: the kernel
-    (``residuals`` as the main path asks), the plain version and the bound:
-    each point's coordinates and draws read, each table row it touches read
-    once, out (and the residuals) written. Returns the numbers."""
+    (``residuals`` as the main path asks) warm and with L2 flushed, the
+    plain version and the bounds: bytes (each point's coordinates and draws
+    read, each table row it touches read once, out and the residuals
+    written) and the hashed corner reads' L2 sectors at ``l2_rate``. Returns
+    the numbers."""
     import torch
 
     from focnerf_tpu_torch.ops import hashgrid as thg
@@ -992,32 +1003,38 @@ def encode_check(label: str, spec, x, table, u=None, residuals: bool = True, sel
             f"max_abs_err {w_err:.3g} (limit {ENCODE_W_REL:g} relative + {ENCODE_W_ABS:g}), out max_abs_err {err:.3g} "
             f"(limit {limit:.3g})")
     if time_it:
+        def call():
+            thg.hashgrid_encode_forward(table, x, spec, u, residuals=residuals)
+
         with SMClocks() as clocks:
-            ms, events = kernel_ms(lambda: thg.hashgrid_encode_forward(table, x, spec, u, residuals=residuals),
-                                   "encode_kernel")
+            ms, events = kernel_ms(call, thg.ENCODE_KERNEL)
+            cold_ms, cold_events = kernel_ms(call, thg.ENCODE_KERNEL, flush=True)
             plain_ms, _ = device_ms(lambda: thg.encode_plain(table, x, spec, u, residuals=residuals), iters=10)
         L, C, D = spec.num_levels, spec.level_dim, spec.input_dim
         touched = int(torch.unique(rows).numel())
         nbytes = (n * D * 4 + (0 if u is None else u.numel() * 4) + touched * C * 4 + n * L * C * 4
                   + (n * J * 8 if residuals else 0))
         bound_ms, by = _bound(nbytes, n * J * (D + 2 * C) + n * L * D * 3)
-        res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
-        line += (f"; device {ms:.5f} ms ({events} kernel events over 100 calls, residuals "
-                 f"{'on' if residuals else 'off'}), plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({by}, {nbytes} B, "
-                 f"{touched} table rows touched); {clocks.summary()}")
+        sectors_ms = sector_bound_ms(spec, n, spec.stochastic_k if u is not None else 1 << D, l2_rate)
+        res.update(ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, sectors_ms=sectors_ms)
+        line += (f"; device {ms:.5f} ms warm ({events} kernel events over 100 calls, residuals "
+                 f"{'on' if residuals else 'off'}), {cold_ms:.5f} ms with L2 flushed ({cold_events} events), plain "
+                 f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({by}, {nbytes} B, {touched} table rows touched), L2 "
+                 f"sectors {sectors_ms:.5f} ms; {clocks.summary()}")
     print(line)
     if not (rows_equal and w_ok and err <= limit and zero and torch.equal(out, bare)):
         raise AssertionError(f"encode kernel disagrees with encode_plain: {label}")
     return res
 
 
-def input_grad_check(label: str, spec, x, table, g, time_it: bool = False):
+def input_grad_check(label: str, spec, x, table, g, time_it: bool = False, l2_rate: float = 0.0):
     """``hashgrid_input_grad`` (the kernel, which recomputes the rows from
     the points) against ``input_grad_plain`` on the card: ENCODE_GX_REL rel
     L2, two runs equal bit for bit, 0 outside the cube. ``time_it``: the
-    kernel, the plain version, and the bound (coordinates and cotangent
-    read, each table row touched once, counted from the forward kernel's
-    rows, the gradient written)."""
+    kernel warm and with L2 flushed, the plain version, and the bounds:
+    bytes (coordinates and cotangent read, each table row touched once,
+    counted from the forward kernel's rows, the gradient written) and the
+    hashed corner reads' L2 sectors at ``l2_rate``."""
     import torch
 
     from focnerf_tpu_torch.ops import hashgrid as thg
@@ -1037,8 +1054,12 @@ def input_grad_check(label: str, spec, x, table, g, time_it: bool = False):
             f"rel L2 {rel:.3g} (limit {ENCODE_GX_REL:g}), max_abs_err {res['err']:.3g} of max|dL/dx| "
             f"{float(want.abs().max()):.3g}; two runs {'equal' if torch.equal(got, again) else 'DIFFER'}")
     if time_it:
+        def call():
+            thg.hashgrid_input_grad(table, x, cot, spec)
+
         with SMClocks() as clocks:
-            ms, events = kernel_ms(lambda: thg.hashgrid_input_grad(table, x, cot, spec), "input_grad_kernel")
+            ms, events = kernel_ms(call, thg.INPUT_GRAD_KERNEL)
+            cold_ms, cold_events = kernel_ms(call, thg.INPUT_GRAD_KERNEL, flush=True)
             plain_ms, _ = device_ms(lambda: thg.input_grad_plain(table, x, cot, spec), iters=5)
         _, rows, _ = thg.hashgrid_encode_forward(table, x, spec, None, residuals=True)
         J = rows.shape[1]
@@ -1046,9 +1067,11 @@ def input_grad_check(label: str, spec, x, table, g, time_it: bool = False):
         del rows
         nbytes = n * D * 4 + cot.numel() * 4 + touched * C * 4 + n * D * 4
         bound_ms, by = _bound(nbytes, n * J * (2 * C + D * D + 3 * D))
-        res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
-        line += (f"; device {ms:.5f} ms ({events} kernel events over 100 calls), plain {plain_ms:.5f} ms, bound "
-                 f"{bound_ms:.5f} ms ({by}, {nbytes} B, {touched} table rows touched); {clocks.summary()}")
+        sectors_ms = sector_bound_ms(spec, n, 1 << D, l2_rate)
+        res.update(ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, sectors_ms=sectors_ms)
+        line += (f"; device {ms:.5f} ms warm ({events} kernel events over 100 calls), {cold_ms:.5f} ms with L2 "
+                 f"flushed ({cold_events} events), plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({by}, {nbytes} B, "
+                 f"{touched} table rows touched), L2 sectors {sectors_ms:.5f} ms; {clocks.summary()}")
     print(line)
     if not (rel <= ENCODE_GX_REL and torch.equal(got, again) and bool((got[oob] == 0).all())):
         raise AssertionError(f"position-gradient kernel disagrees with input_grad_plain: {label}")
@@ -1066,17 +1089,23 @@ def phase_encode_kernel(serve_points: int) -> list:
     one -O2 c2f stage (8 levels, grad_levels 1, 3, 5, 7), the background
     grid (D = 2, one chunk's 4096 rays), D-NeRF's deform field (D = 3) and
     hyper field (D = 5) at 4096 x 128 points, each with the position
-    gradient (both timed; the kernels line takes deform's). Returns the
-    kernels line's two entries."""
+    gradient (both timed, and deform's forward with residuals; the kernels
+    line takes deform's gradient). Each timed kernel is read warm and with
+    L2 flushed, beside its byte bound and the L2 sectors its hashed corner
+    reads take at the card's measured L2 read rate. Returns the kernels
+    line's two entries."""
     import dataclasses
 
     import torch
 
     from focnerf_tpu_torch.config import parse_options
     from focnerf_tpu_torch.ops import hashgrid as thg
+    from focnerf_tpu_torch.utils.measure import l2_read_bytes_per_s
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cuda").manual_seed(17)
+    l2_rate = l2_read_bytes_per_s(40 * 2**20, dev)
+    print(f"[kernel-encode] L2 read rate {l2_rate / 1e12:.3f} TB/s (a 40 MiB buffer read 50 times from L2)")
 
     def table_for(spec):
         return torch.rand((spec.table_rows, spec.level_dim), generator=g, device=dev) * 2 - 1
@@ -1090,10 +1119,11 @@ def phase_encode_kernel(serve_points: int) -> list:
     table = table_for(spec)
     x = encode_points(spec, ray_points01(cfg, 128, g), g)
     train = encode_check(f"-O training encode (K {spec.stochastic_k} on every level)", spec, x, table,
-                         draws(spec, x.shape[0]), time_it=True)
+                         draws(spec, x.shape[0]), time_it=True, l2_rate=l2_rate)
     exact = dataclasses.replace(spec, stochastic_k=0, stochastic_min_size=0)
     xs = encode_points(exact, ray_points01(cfg, math.ceil(serve_points / CHUNK), g)[:serve_points], g)
-    encode_check("serving exact encode (one ladder chunk's points)", exact, xs, table, residuals=False, time_it=True)
+    encode_check("serving exact encode (one ladder chunk's points)", exact, xs, table, residuals=False, time_it=True,
+                 l2_rate=l2_rate)
     del xs
     o2 = parse_options(["scene", "-O2"]).nerf_config()
     sub = dataclasses.replace(o2.grid_spec, grad_levels=(1, 3, 5, 7)).truncate(8)
@@ -1115,8 +1145,8 @@ def phase_encode_kernel(serve_points: int) -> list:
             x = torch.cat([x, lifted], -1)
         x = encode_points(spec, x, g)
         table = table_for(spec)
-        encode_check(f"D-NeRF {name} field", spec, x, table)
-        grads[name] = input_grad_check(f"D-NeRF {name} field", spec, x, table, g, time_it=True)
+        encode_check(f"D-NeRF {name} field", spec, x, table, time_it=name == "deform", l2_rate=l2_rate)
+        grads[name] = input_grad_check(f"D-NeRF {name} field", spec, x, table, g, time_it=True, l2_rate=l2_rate)
         del x, table
     common = {"route": "cuda", "source": "focnerf_tpu_torch/csrc/hashgrid_fwd.cu", "library_ms": None}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")

@@ -15,23 +15,28 @@
 // Kernel A, per (point n, level l): the point is moved to the origin when
 // any coordinate lies outside [0, 1] (its weights are then 0). Then
 //   pos_d = x_d * scale_l + 0.5,  cell_d = floor(pos_d),  frac_d = pos_d - cell_d;
-// a corner's row is the XOR-prime uint32 hash of its vertex modulo the
-// level's size (hashed levels) or its dense index with strides (R_l + 1)^d,
-// plus the level's offset. An exact level blends its 2^D corners by the
-// D-linear weights prod_d (bit_d ? frac_d : 1 - frac_d); a stochastic level
-// draws K corners, corner bit d being u[n, s, k, d] < frac_d, each of weight
-// fp32(1 / K). out[n, l * C + c] = sum over the level's corners of
-// weight * table[row, c]. With residuals on, the rows (int32) and weights go
-// to the level's columns of rows/weights [N, J] (the order of col_levels),
-// which the table-gradient kernel (csrc/hashgrid_bwd.cu) reads.
+// a corner's row is the XOR-prime uint32 hash of its vertex masked to the
+// level's size (hashed levels; a hashed level's size is a power of two, so
+// the mask gives the plain version's modulo) or its dense index with strides
+// (R_l + 1)^d, plus the level's offset. An exact level blends its 2^D
+// corners by the D-linear weights prod_d (bit_d ? frac_d : 1 - frac_d); a
+// stochastic level draws K corners, corner bit d being u[n, s, k, d] <
+// frac_d, each of weight fp32(1 / K). out[n, l * C + c] = sum over the
+// level's corners of weight * table[row, c]. With residuals on, the rows
+// (int32) and weights go to the level's columns of rows/weights [N, J] (the
+// order of col_levels), which the table-gradient kernel
+// (csrc/hashgrid_bwd.cu) reads.
 //
-// Kernel B, per point: dL/dx_d = sum over levels and corners of
-// (g_l . table[row_j]) * scale_l * (+-1) * prod_{e != d} f_je, 0 outside the
-// unit cube. Each (point, level) thread recomputes its level's rows from x
-// (a few integer products a corner; reading the forward's rows instead, a
-// point's 512 B at D = 3 and 2 KB at D = 5, was 14-16% slower on the card)
-// and computes its level's term; the block then adds the levels in order,
-// so the sum is deterministic (no float atomics).
+// Kernel B, per point: dL/dx_d = sum over levels of scale_l * sum over the
+// corner pairs (j, j | 1 << d) with bit d of j clear of
+// (gv_{j | 1 << d} - gv_j) * prod_{e != d} f_je, where gv_j = g_l . table[row_j]
+// and f_je = bit_e ? frac_e : 1 - frac_e; 0 outside the unit cube. The pair
+// shares its product over the other axes, so a level takes D * 2^(D-1)
+// such products, half of what each corner's own would. The rows are
+// recomputed from x (a few integer products a corner; reading the
+// forward's, a point's 512 B at D = 3 and 2 KB at D = 5, was 14-16% slower
+// on the card), and a level's 2^D gathers are all issued before any
+// arithmetic uses them.
 //
 // Matching the plain version. The rows must equal the plain version's bit
 // for bit: a point on a cell face must land in the same cell, or the
@@ -41,34 +46,55 @@
 // would then differ at a face, so every add, subtract and multiply here is
 // an explicit __f*_rn intrinsic, as in csrc/march_skip.cu. The hash is
 // uint32 arithmetic, which the plain version's int64 products masked with
-// 0xFFFFFFFF give exactly. Weights multiply the D factors in index order
-// and the corners are summed in index order; torch's prod and sum may
-// reduce in another order on the card, so weights and out agree to a few
-// ulp, not to the bit.
+// 0xFFFFFFFF give exactly. Kernel A multiplies the weights' D factors in
+// index order and sums the corners in index order; torch's prod and sum
+// may reduce in another order on the card, so weights and out agree to a
+// few ulp, not to the bit. Kernel B adds each point's level terms in level
+// order, so two runs are equal bit for bit (no float atomics).
 //
-// Why a thread per (point, level). A level's rows of neighbouring points
-// are near each other on the dense and coarse levels (the points of a ray
-// are consecutive), so a warp on 32 consecutive points of one level shares
-// cache lines of the table, and on the hashed levels its 32 independent
-// gathers are in flight together. A block holds 32 points and all their
-// levels (threadIdx.y walks the levels), so each point's out row and
-// residual columns are written by one block at about the same time and
-// reach L2 as whole lines.
+// Tiles. A block takes a tile of P consecutive points (P a multiple of 32)
+// and all their levels. The tile's inputs, x [P, D], the draws u [P,
+// n_stoch * K * D] and, for kernel B, the cotangent [P, L * C], are
+// contiguous spans of global memory: the block copies each into shared
+// memory with 16-byte loads (scalar ones where a span is not 16-byte
+// aligned). Kernel A builds the tile's out [P, L * C] in shared memory and
+// writes it as one contiguous span with 16-byte stores. Its rows and
+// weights [P, J] go the same way, a chunk of levels at a time where all J
+// columns do not fit (D-NeRF's exact encodes: 128 columns at D = 3, 512 at
+// D = 5): each point's columns of a chunk are one contiguous span of its
+// row. Written straight from the threads, a warp's 32 points each wrote
+// its own columns a row apart, 32 scattered stores an instruction: the
+// parent kernel spent 0.16 of its 0.40 ms at -O, and 2.3 of 2.8 ms at
+// D-NeRF deform, on those stores. Each tile in shared memory keeps a
+// point's row at an odd word stride, so a warp's 32 points read or write
+// one column of it without bank conflicts. The work is (32-point group,
+// level) items: a warp takes 32 consecutive points of one level, so on the
+// coarse levels its rows share cache lines of the table, and on the hashed
+// levels its 32 gathers are in flight together. Kernel B writes each
+// item's D level terms to shared memory; then every thread takes a
+// (point, d) of the tile and adds its L terms in level order.
 //
-// Bound: bytes. Kernel A reads each point's D coordinates (and its draws)
-// and the table rows it gathers (C * 4 B a corner: a random 8-byte read on
-// the hashed levels, which the 32-byte sector makes 32 B of traffic), and
-// writes out (L * C * 4 B) and, with residuals, 8 B a column. At the -O
-// training shape (524,288 points, 16 levels, K = 1, residuals on) that is
-// 524,288 x (12 + 192 + 128 + 128) B ~ 241 MB for the points, their draws,
-// out and the residuals, plus 8 B for each table row touched once (~30 MB
-// on rays through the box): ~0.08 ms at 3.35 TB/s. Kernel B reads x, the
-// cotangent (L * C * 4 B a point) and the table rows it touches, and writes
-// D floats a point: at D-NeRF's deform field (524,288 points, D = 3) ~129 MB,
-// ~0.04 ms.
+// The host chooses the tile, its warps and chunk, and lays out the shared
+// memory (ops/hashgrid.py::encode_tile, input_grad_tile) from the kernel's
+// registers (focnerf_hashgrid_kernel_regs) and the SM's limits: the warps
+// share each chunk's items evenly, and the blocks an SM holds take at most
+// 176 KB of its shared memory, leaving L1 at least 80 KB, where the coarse
+// levels' gathers hit (tiles that left less ran up to 2x slower).
+//
+// Bound. Kernel A reads each point's D coordinates (and its draws) and the
+// table rows it gathers, and writes out (L * C * 4 B) and, with residuals,
+// 8 B a column: at the -O training shape (524,288 points, 16 levels, K = 1,
+// residuals on) ~271 MB, ~0.08 ms at 3.35 TB/s. But a gather on a hashed
+// level reads 8 random bytes, which moves a whole 32-byte sector through L2:
+// 524,288 x 11 hashed levels of sectors at -O, and at D-NeRF's deform field
+// (D = 3, 16 levels, 11 of them hashed, 8 corners) kernel B's 46M sectors
+// (1.48 GB) take longer through L2 than its ~129 MB of bytes take from
+// memory. tools/time_encode_kernels.py prints both bounds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 constexpr int kMaxLevels = 32;
 
@@ -88,18 +114,43 @@ struct LevelTable {
   float inv_k;      // a drawn corner's weight: fp32(1 / k), as torch.full(..., 1.0 / k)
   float scale[kMaxLevels];     // fp32(exp2(l * log2 s) * base - 1), as _level_scale
   uint32_t offset[kMaxLevels];  // first table row of the level
-  uint32_t size[kMaxLevels];    // rows of the level
+  uint32_t mask[kMaxLevels];    // a hashed level's rows - 1 (a power of two less 1); 0 on a dense level
   uint32_t res1[kMaxLevels];    // R_l + 1: the dense stride's base
   int hashed[kMaxLevels];
   int stoch[kMaxLevels];  // the level's index on u's axis 1, or -1 (exact)
   int col[kMaxLevels];    // the level's first residual column
 };
 
+// A block's tile and its shared-memory layout, chosen by the host
+// (ops/hashgrid.py::encode_tile, input_grad_tile) and passed by value.
+// Mirrors the ctypes Structure _Tile field for field. Strides are in words
+// between consecutive points' rows of a tile; offsets are word offsets into
+// the block's dynamic shared memory (x's tile starts at 0).
+struct Tile {
+  int points;       // P, a multiple of 32
+  int warps;        // the block's warps
+  int smem_bytes;   // its dynamic shared memory
+  int x_stride;
+  int u_stride;
+  int cols_stride;  // the [P, L * C] tile: out (kernel A) or the cotangent (kernel B)
+  int res_stride;   // the rows and weights tiles: [P, the residual columns of res_levels levels]
+  int res_levels;   // levels whose residuals kernel A stages at a time (a chunk)
+  int u_off;
+  int cols_off;
+  int rows_off;
+  int weights_off;
+  int terms_off;    // kernel B's level terms [L, D, P]
+};
+
 namespace {
 
 constexpr int kMaxDim = 7;      // _PRIMES has 7 entries
 constexpr int kMaxChannels = 8;
-constexpr int kLevelsPerBlock = 16;  // threadIdx.y; a block is 32 points x up to 16 levels at a time
+// A block's most warps. A bound of 512 threads made nvcc give the encode
+// 56 registers a thread at D = 3 instead of 48, and its 8-warp tiles ran
+// 7-20% slower on the card; 16-warp tiles won only at the exact D = 5 encode.
+constexpr int kMaxWarps = 8;
+constexpr int kMaxSmemBytes = 232448;  // 227 KB: a block's most on sm_90
 
 __device__ __forceinline__ uint32_t prime(int d) {
   switch (d) {
@@ -113,8 +164,8 @@ __device__ __forceinline__ uint32_t prime(int d) {
   }
 }
 
-// One level's cell of one point: cell coordinates, fractions, and the two
-// row terms a corner picks per dimension (bit 0 and bit 1).
+// One level's cell of one point: the fractions, and the two row terms a
+// corner picks per dimension (bit 0 and bit 1).
 template <int D>
 struct Cell {
   float frac[D];
@@ -153,7 +204,7 @@ __device__ __forceinline__ uint32_t corner_row(const Cell<D>& c, unsigned bits, 
   if (lt.hashed[l]) {
 #pragma unroll
     for (int d = 0; d < D; ++d) idx ^= ((bits >> d) & 1u) ? c.term1[d] : c.term0[d];
-    idx %= lt.size[l];
+    idx &= lt.mask[l];
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) idx += ((bits >> d) & 1u) ? c.term1[d] : c.term0[d];
@@ -161,13 +212,14 @@ __device__ __forceinline__ uint32_t corner_row(const Cell<D>& c, unsigned bits, 
   return idx + lt.offset[l];
 }
 
-// Reads a point's coordinates; out-of-range points move to the origin.
+// A point's coordinates from the x tile; out-of-range points move to the
+// origin. Returns whether it lay outside the unit cube.
 template <int D>
-__device__ __forceinline__ bool load_point(const float* __restrict__ x, long long n, float (&p)[D]) {
+__device__ __forceinline__ bool load_point(const float* xs, float (&p)[D]) {
   bool oob = false;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    p[d] = x[n * D + d];
+    p[d] = xs[d];
     oob |= p[d] < 0.f || p[d] > 1.f;
   }
   if (oob) {
@@ -175,6 +227,79 @@ __device__ __forceinline__ bool load_point(const float* __restrict__ x, long lon
     for (int d = 0; d < D; ++d) p[d] = 0.f;
   }
   return oob;
+}
+
+// (row, column) of the elements e, e + step, ... of a row-major [rows, len]
+// span, advanced without a division in the loop.
+struct RowWalk {
+  int p, c, dp, dc, len;
+  __device__ RowWalk(int e, int step, int len_) : p(e / len_), c(e % len_), dp(step / len_), dc(step % len_), len(len_) {}
+  __device__ __forceinline__ void next() {
+    p += dp;
+    c += dc;
+    if (c >= len) {
+      c -= len;
+      ++p;
+    }
+  }
+  __device__ __forceinline__ void step1() {
+    if (++c == len) {
+      c = 0;
+      ++p;
+    }
+  }
+};
+
+// dst[p * stride + c] = src[p * len + c] for the tile's np points: the
+// block's threads read src (read once: evict-first) as float4s where it is
+// 16-byte aligned, as floats elsewhere.
+__device__ void stage_in(float* dst, const float* __restrict__ src, int np, int len, int stride) {
+  const int total = np * len;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = total >> 2;
+    RowWalk w(4 * threadIdx.x, 4 * blockDim.x, len);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x, w.next()) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(src) + i);
+      RowWalk at = w;
+      dst[at.p * stride + at.c] = v.x;
+      at.step1();
+      dst[at.p * stride + at.c] = v.y;
+      at.step1();
+      dst[at.p * stride + at.c] = v.z;
+      at.step1();
+      dst[at.p * stride + at.c] = v.w;
+    }
+    done = n4 * 4;
+  }
+  RowWalk w(done + threadIdx.x, blockDim.x, len);
+  for (int e = done + threadIdx.x; e < total; e += blockDim.x, w.next()) dst[w.p * stride + w.c] = __ldcs(src + e);
+}
+
+// dst[p * len + c] = src[p * stride + c]: the tile written back as one
+// contiguous span, with float4 stores where dst is 16-byte aligned.
+__device__ void stage_out(float* __restrict__ dst, const float* src, int np, int len, int stride) {
+  const int total = np * len;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int n4 = total >> 2;
+    RowWalk w(4 * threadIdx.x, 4 * blockDim.x, len);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x, w.next()) {
+      RowWalk at = w;
+      float4 v;
+      v.x = src[at.p * stride + at.c];
+      at.step1();
+      v.y = src[at.p * stride + at.c];
+      at.step1();
+      v.z = src[at.p * stride + at.c];
+      at.step1();
+      v.w = src[at.p * stride + at.c];
+      reinterpret_cast<float4*>(dst)[i] = v;
+    }
+    done = n4 * 4;
+  }
+  RowWalk w(done + threadIdx.x, blockDim.x, len);
+  for (int e = done + threadIdx.x; e < total; e += blockDim.x, w.next()) dst[e] = src[w.p * stride + w.c];
 }
 
 // acc[c] += w * table[row, c]. Channel loops run to kMaxChannels, unrolled
@@ -192,133 +317,195 @@ __device__ __forceinline__ void blend(float (&acc)[kMaxChannels], const float* _
     if (c < C) acc[c] = __fadd_rn(acc[c], __fmul_rn(w, __ldg(table + static_cast<size_t>(row) * C + c)));
 }
 
+// dst[p * dst_stride + c] = src[p * src_stride + c] for c < width: a
+// chunk's columns of the tile's np points back to their rows.
+__device__ void put_columns(float* __restrict__ dst, int dst_stride, const float* src, int np, int width,
+                            int src_stride) {
+  if (width == dst_stride) {
+    stage_out(dst, src, np, width, src_stride);
+    return;
+  }
+  RowWalk w(threadIdx.x, blockDim.x, width);
+  for (int e = threadIdx.x; e < np * width; e += blockDim.x, w.next())
+    dst[w.p * dst_stride + w.c] = src[w.p * src_stride + w.c];
+}
+
 template <int D>
-__global__ void encode_kernel(const float* __restrict__ table, const float* __restrict__ x,
-                              const float* __restrict__ u, LevelTable lt, long long n_points,
-                              float* __restrict__ out, int* __restrict__ rows, float* __restrict__ weights) {
-  const long long n = static_cast<long long>(blockIdx.x) * 32 + threadIdx.x;
-  if (n >= n_points) return;
-  float p[D];
-  const float keep = load_point<D>(x, n, p) ? 0.f : 1.f;
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    encode_kernel(const float* __restrict__ table, const float* __restrict__ x, const float* __restrict__ u,
+                  LevelTable lt, Tile tile, long long n_points, float* __restrict__ out, int* __restrict__ rows,
+                  float* __restrict__ weights) {
+  extern __shared__ float smem[];
+  const int P = tile.points;
+  const long long n0 = static_cast<long long>(blockIdx.x) * P;
+  const int np = static_cast<int>(n_points - n0 < P ? n_points - n0 : P);
   const int C = lt.level_dim;
+  const int L = lt.num_levels;
   const int J = lt.total_cols;
-  for (int l = threadIdx.y; l < lt.num_levels; l += blockDim.y) {
-    const Cell<D> cell = locate<D>(p, lt, l);
-    float acc[kMaxChannels];
+  const int ulen = lt.n_stoch * lt.k * D;
+  float* const xs = smem;
+  float* const us = smem + tile.u_off;
+  float* const os = smem + tile.cols_off;
+  float* const rs = smem + tile.rows_off;
+  float* const ws = smem + tile.weights_off;
+  stage_in(xs, x + n0 * D, np, D, tile.x_stride);
+  if (ulen > 0) stage_in(us, u + n0 * ulen, np, ulen, tile.u_stride);
+  __syncthreads();
+
+  const int groups = P / 32;
+  const int chunk = rows != nullptr ? tile.res_levels : L;
+  for (int l0 = 0; l0 < L; l0 += chunk) {
+    const int l1 = l0 + chunk < L ? l0 + chunk : L;
+    const int c0 = lt.col[l0];
+    for (int item = threadIdx.x >> 5; item < groups * (l1 - l0); item += tile.warps) {
+      const int l = l0 + item / groups;
+      const int p = (item % groups) * 32 + (threadIdx.x & 31);
+      if (p >= np) continue;
+      float pt[D];
+      const float keep = load_point<D>(xs + p * tile.x_stride, pt) ? 0.f : 1.f;
+      const Cell<D> cell = locate<D>(pt, lt, l);
+      float acc[kMaxChannels];
 #pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) acc[c] = 0.f;
-    const int s = lt.stoch[l];
-    const long long col = n * J + lt.col[l];
-    if (s < 0) {
-      for (unsigned j = 0; j < (1u << D); ++j) {
-        float w = 1.f;
+      for (int c = 0; c < kMaxChannels; ++c) acc[c] = 0.f;
+      const int s = lt.stoch[l];
+      float* const rp = rs + p * tile.res_stride + lt.col[l] - c0;  // the level's residual columns in the chunk
+      float* const wp = ws + p * tile.res_stride + lt.col[l] - c0;
+      if (s < 0) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) w = __fmul_rn(w, ((j >> d) & 1u) ? cell.frac[d] : __fsub_rn(1.f, cell.frac[d]));
-        w = __fmul_rn(w, keep);
-        const uint32_t row = corner_row<D>(cell, j, lt, l);
-        blend(acc, table, row, w, C);
-        if (rows != nullptr) {
-          rows[col + j] = static_cast<int>(row);
-          weights[col + j] = w;
+        for (unsigned j = 0; j < (1u << D); ++j) {
+          float w = 1.f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) w = __fmul_rn(w, ((j >> d) & 1u) ? cell.frac[d] : __fsub_rn(1.f, cell.frac[d]));
+          w = __fmul_rn(w, keep);
+          const uint32_t row = corner_row<D>(cell, j, lt, l);
+          blend(acc, table, row, w, C);
+          if (rows != nullptr) {
+            rp[j] = __int_as_float(static_cast<int>(row));
+            wp[j] = w;
+          }
+        }
+      } else {
+        const float w = __fmul_rn(lt.inv_k, keep);
+        const float* ud = us + p * tile.u_stride + s * lt.k * D;
+        for (int k = 0; k < lt.k; ++k) {
+          unsigned bits = 0;
+#pragma unroll
+          for (int d = 0; d < D; ++d) bits |= (ud[k * D + d] < cell.frac[d] ? 1u : 0u) << d;
+          const uint32_t row = corner_row<D>(cell, bits, lt, l);
+          blend(acc, table, row, w, C);
+          if (rows != nullptr) {
+            rp[k] = __int_as_float(static_cast<int>(row));
+            wp[k] = w;
+          }
         }
       }
-    } else {
-      const float w = __fmul_rn(lt.inv_k, keep);
-      const float* ud = u + ((n * lt.n_stoch + s) * lt.k) * D;
-      for (int k = 0; k < lt.k; ++k) {
-        unsigned bits = 0;
-#pragma unroll
-        for (int d = 0; d < D; ++d) bits |= (__ldg(ud + k * D + d) < cell.frac[d] ? 1u : 0u) << d;
-        const uint32_t row = corner_row<D>(cell, bits, lt, l);
-        blend(acc, table, row, w, C);
-        if (rows != nullptr) {
-          rows[col + k] = static_cast<int>(row);
-          weights[col + k] = w;
-        }
-      }
-    }
-    float* o = out + n * (lt.num_levels * C) + l * C;
-    if (C == 2) {
-      *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
-    } else {
+      float* o = os + p * tile.cols_stride + l * C;
 #pragma unroll
       for (int c = 0; c < kMaxChannels; ++c)
         if (c < C) o[c] = acc[c];
     }
-  }
-}
-
-// The position gradient. Dynamic shared memory: num_levels x 32 x D floats,
-// one level's term of each point of the block.
-template <int D>
-__global__ void input_grad_kernel(const float* __restrict__ table, const float* __restrict__ x,
-                                  const float* __restrict__ g, LevelTable lt, long long n_points,
-                                  float* __restrict__ gx) {
-  extern __shared__ float terms[];
-  const int p_local = threadIdx.x;
-  const long long n = static_cast<long long>(blockIdx.x) * 32 + p_local;
-  const bool live = n < n_points;
-  const int C = lt.level_dim;
-  const int L = lt.num_levels;
-  float p[D];
-  bool oob = true;
-  if (live) oob = load_point<D>(x, n, p);
-  for (int l = threadIdx.y; l < L; l += blockDim.y) {
-    float term[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) term[d] = 0.f;
-    if (live) {
-      const Cell<D> cell = locate<D>(p, lt, l);
-      const float* gl = g + n * (L * C) + l * C;
-      for (unsigned j = 0; j < (1u << D); ++j) {
-        const uint32_t row = corner_row<D>(cell, j, lt, l);
-        // (table[row] * g_l).sum(-1)
-        float gv = 0.f;
-        if (C == 2) {
-          const float2 t = __ldg(reinterpret_cast<const float2*>(table) + row);
-          gv = __fadd_rn(__fmul_rn(t.x, __ldg(gl)), __fmul_rn(t.y, __ldg(gl + 1)));
-        } else {
-#pragma unroll
-          for (int c = 0; c < kMaxChannels; ++c)
-            if (c < C) gv = __fadd_rn(gv, __fmul_rn(__ldg(table + static_cast<size_t>(row) * C + c), __ldg(gl + c)));
-        }
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          // the product of the other axes' factors, in index order
-          float others = 1.f;
-#pragma unroll
-          for (int e = 0; e < D; ++e) {
-            if (e == d) continue;
-            others = __fmul_rn(others, ((j >> e) & 1u) ? cell.frac[e] : __fsub_rn(1.f, cell.frac[e]));
-          }
-          const float v = __fmul_rn(gv, others);
-          term[d] = ((j >> d) & 1u) ? __fadd_rn(term[d], v) : __fsub_rn(term[d], v);
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < D; ++d) term[d] = __fmul_rn(lt.scale[l], term[d]);
+    if (rows != nullptr) {
+      __syncthreads();
+      const int width = (l1 < L ? lt.col[l1] : J) - c0;
+      put_columns(reinterpret_cast<float*>(rows) + n0 * J + c0, J, rs, np, width, tile.res_stride);
+      put_columns(weights + n0 * J + c0, J, ws, np, width, tile.res_stride);
+      __syncthreads();  // the next chunk reuses the residual tiles
     }
-#pragma unroll
-    for (int d = 0; d < D; ++d) terms[(l * 32 + p_local) * D + d] = term[d];
   }
   __syncthreads();
-  if (threadIdx.y != 0 || !live) return;
+  stage_out(out + n0 * L * C, os, np, L * C, tile.cols_stride);
+}
+
+// The position gradient.
+template <int D>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    input_grad_kernel(const float* __restrict__ table, const float* __restrict__ x, const float* __restrict__ g,
+                      LevelTable lt, Tile tile, long long n_points, float* __restrict__ gx) {
+  constexpr int kCorners = 1 << D;
+  extern __shared__ float smem[];
+  const int P = tile.points;
+  const long long n0 = static_cast<long long>(blockIdx.x) * P;
+  const int np = static_cast<int>(n_points - n0 < P ? n_points - n0 : P);
+  const int C = lt.level_dim;
+  const int L = lt.num_levels;
+  float* const xs = smem;
+  float* const gs = smem + tile.cols_off;
+  float* const terms = smem + tile.terms_off;
+  stage_in(xs, x + n0 * D, np, D, tile.x_stride);
+  stage_in(gs, g + n0 * L * C, np, L * C, tile.cols_stride);
+  __syncthreads();
+
+  const int groups = P / 32;
+  for (int item = threadIdx.x >> 5; item < groups * L; item += tile.warps) {
+    const int l = item / groups;
+    const int p = (item - l * groups) * 32 + (threadIdx.x & 31);
+    if (p >= np) continue;
+    float pt[D];
+    if (load_point<D>(xs + p * tile.x_stride, pt)) continue;  // outside the cube: gx is 0, its terms unread
+    const Cell<D> cell = locate<D>(pt, lt, l);
+    const float* gl = gs + p * tile.cols_stride + l * C;
+    // gv_j = (table[row_j] * g_l).sum(-1), every gather issued first
+    float gv[kCorners];
+    if (C == 2) {
+      float2 t[kCorners];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
+      for (int j = 0; j < kCorners; ++j) t[j] = __ldg(reinterpret_cast<const float2*>(table) + corner_row<D>(cell, j, lt, l));
+      const float g0 = gl[0], g1 = gl[1];
+#pragma unroll
+      for (int j = 0; j < kCorners; ++j) gv[j] = __fadd_rn(__fmul_rn(t[j].x, g0), __fmul_rn(t[j].y, g1));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCorners; ++j) {
+        const uint32_t row = corner_row<D>(cell, j, lt, l);
+        float v = 0.f;
+#pragma unroll
+        for (int c = 0; c < kMaxChannels; ++c)
+          if (c < C) v = __fadd_rn(v, __fmul_rn(__ldg(table + static_cast<size_t>(row) * C + c), gl[c]));
+        gv[j] = v;
+      }
+    }
+    float f0[D];
+#pragma unroll
+    for (int e = 0; e < D; ++e) f0[e] = __fsub_rn(1.f, cell.frac[e]);
+    const float scale = lt.scale[l];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < kCorners / 2; ++q) {
+        const int lo = ((q >> d) << (d + 1)) | (q & ((1 << d) - 1));  // q with a 0 bit inserted at d
+        float others = 1.f;
+#pragma unroll
+        for (int e = 0; e < D; ++e)
+          if (e != d) others = __fmul_rn(others, ((lo >> e) & 1) ? cell.frac[e] : f0[e]);
+        acc = __fadd_rn(acc, __fmul_rn(__fsub_rn(gv[lo | (1 << d)], gv[lo]), others));
+      }
+      terms[(l * D + d) * P + p] = __fmul_rn(scale, acc);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < np * D; i += blockDim.x) {
+    const int p = i / D, d = i - p * D;
+    bool oob = false;
+#pragma unroll
+    for (int e = 0; e < D; ++e) {
+      const float v = xs[p * tile.x_stride + e];
+      oob |= v < 0.f || v > 1.f;
+    }
     float acc = 0.f;
-    for (int l = 0; l < L; ++l) acc = __fadd_rn(acc, terms[(l * 32 + p_local) * D + d]);
-    gx[n * D + d] = oob ? 0.f : acc;
+    if (!oob)
+      for (int l = 0; l < L; ++l) acc = __fadd_rn(acc, terms[(l * D + d) * P + p]);
+    gx[n0 * D + i] = acc;
   }
 }
 
-dim3 block_shape(int levels) { return dim3(32, levels < kLevelsPerBlock ? levels : kLevelsPerBlock); }
-
-bool valid(const LevelTable& lt) {
+bool valid(const LevelTable& lt, const Tile& tile) {
   return lt.num_levels >= 1 && lt.num_levels <= kMaxLevels && lt.input_dim >= 1 && lt.input_dim <= kMaxDim &&
-         lt.level_dim >= 1 && lt.level_dim <= kMaxChannels;
+         lt.level_dim >= 1 && lt.level_dim <= kMaxChannels && tile.points >= 32 && tile.points % 32 == 0 &&
+         tile.warps >= 1 && tile.warps <= kMaxWarps && tile.smem_bytes > 0 &&
+         tile.smem_bytes <= kMaxSmemBytes &&
+         tile.res_levels >= 1;
 }
-
-}  // namespace
 
 #define FOCNERF_DIM_SWITCH(D_VAR, CALL) \
   switch (D_VAR) {                      \
@@ -332,40 +519,110 @@ bool valid(const LevelTable& lt) {
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
+// Lets every kernel of this file take up to kMaxSmemBytes of dynamic shared
+// memory on the current device, once a device: at the first launch, which
+// the port makes before it captures any CUDA graph.
+std::atomic<unsigned long long> g_smem_allowed{0};
+
+int allow_large_tiles() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (g_smem_allowed.load() & bit) return 0;
+  for (int d = 1; d <= kMaxDim && err == cudaSuccess; ++d) {
+#define FOCNERF_ALLOW(D)                                                                                         \
+  err = cudaFuncSetAttribute(encode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);       \
+  if (err == cudaSuccess)                                                                                        \
+    err = cudaFuncSetAttribute(input_grad_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes)
+    FOCNERF_DIM_SWITCH(d, FOCNERF_ALLOW)
+#undef FOCNERF_ALLOW
+  }
+  if (err == cudaSuccess) g_smem_allowed.fetch_or(bit);
+  return static_cast<int>(err);
+}
+
+// Reads buf (n4 float4s) reps times, grid-strided, cached in L2 only: with a
+// buffer that fits in L2, its time gives the card's L2 read rate, which
+// bounds the encodes' scattered gathers (a 32-byte sector a corner read).
+__global__ void l2_read_kernel(const float4* __restrict__ buf, long long n4, int reps, float* __restrict__ out) {
+  float acc = 0.f;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll 4
+    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n4; i += stride) {
+      const float4 v = __ldcg(buf + i);
+      acc += (v.x + v.y) + (v.z + v.w);
+    }
+  }
+  if (acc != 0.f) out[blockIdx.x] = acc;  // a zero buffer writes nothing; the reads stay live
+}
+
+}  // namespace
+
 // out [N, L * C]; rows/weights [N, J] or both null (no residuals); u
 // [N, n_stoch, K, D] or null when no level is stochastic.
-extern "C" int focnerf_hashgrid_encode(const void* table, const void* x, const void* u, LevelTable lt,
+extern "C" int focnerf_hashgrid_encode(const void* table, const void* x, const void* u, LevelTable lt, Tile tile,
                                        long long n_points, void* out, void* rows, void* weights, void* stream) {
-  if (!valid(lt)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(lt, tile)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_points <= 0) return static_cast<int>(cudaGetLastError());
+  if (const int err = allow_large_tiles()) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((n_points + 31) / 32));
-  const dim3 block = block_shape(lt.num_levels);
-#define FOCNERF_ENCODE(D)                                                                                      \
-  encode_kernel<D><<<grid, block, 0, s>>>(static_cast<const float*>(table), static_cast<const float*>(x),       \
-                                          static_cast<const float*>(u), lt, n_points, static_cast<float*>(out), \
-                                          static_cast<int*>(rows), static_cast<float*>(weights))
+  const dim3 grid(static_cast<unsigned>((n_points + tile.points - 1) / tile.points));
+#define FOCNERF_ENCODE(D)                                                                                   \
+  encode_kernel<D><<<grid, tile.warps * 32, tile.smem_bytes, s>>>(                                         \
+      static_cast<const float*>(table), static_cast<const float*>(x), static_cast<const float*>(u), lt, tile, \
+      n_points, static_cast<float*>(out), static_cast<int*>(rows), static_cast<float*>(weights))
   FOCNERF_DIM_SWITCH(lt.input_dim, FOCNERF_ENCODE)
 #undef FOCNERF_ENCODE
   return static_cast<int>(cudaGetLastError());
 }
 
 // gx [N, D]; g [N, L * C], the exact encode's output cotangent.
-extern "C" int focnerf_hashgrid_input_grad(const void* table, const void* x, const void* g, LevelTable lt,
+extern "C" int focnerf_hashgrid_input_grad(const void* table, const void* x, const void* g, LevelTable lt, Tile tile,
                                            long long n_points, void* gx, void* stream) {
-  if (!valid(lt)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(lt, tile)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_points <= 0) return static_cast<int>(cudaGetLastError());
+  if (const int err = allow_large_tiles()) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((n_points + 31) / 32));
-  const dim3 block = block_shape(lt.num_levels);
-  const size_t smem = static_cast<size_t>(lt.num_levels) * 32 * lt.input_dim * sizeof(float);
-#define FOCNERF_INPUT_GRAD(D)                                                                       \
-  input_grad_kernel<D><<<grid, block, smem, s>>>(static_cast<const float*>(table),                  \
-                                                 static_cast<const float*>(x),                      \
-                                                 static_cast<const float*>(g), lt, n_points,        \
-                                                 static_cast<float*>(gx))
+  const dim3 grid(static_cast<unsigned>((n_points + tile.points - 1) / tile.points));
+#define FOCNERF_INPUT_GRAD(D)                                                                             \
+  input_grad_kernel<D><<<grid, tile.warps * 32, tile.smem_bytes, s>>>(                                   \
+      static_cast<const float*>(table), static_cast<const float*>(x), static_cast<const float*>(g), lt, tile, \
+      n_points, static_cast<float*>(gx))
   FOCNERF_DIM_SWITCH(lt.input_dim, FOCNERF_INPUT_GRAD)
 #undef FOCNERF_INPUT_GRAD
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread of encode_kernel<D> (kernel 0) or input_grad_kernel<D>
+// (kernel 1) uses, which the host's tile choice needs; -1 on an error.
+extern "C" int focnerf_hashgrid_kernel_regs(int kernel, int input_dim) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (input_dim) {
+#define FOCNERF_REGS(D)                                                                                        \
+  case D:                                                                                                      \
+    err = kernel == 0 ? cudaFuncGetAttributes(&attr, encode_kernel<D>) : cudaFuncGetAttributes(&attr, input_grad_kernel<D>); \
+    break;
+    FOCNERF_REGS(1)
+    FOCNERF_REGS(2)
+    FOCNERF_REGS(3)
+    FOCNERF_REGS(4)
+    FOCNERF_REGS(5)
+    FOCNERF_REGS(6)
+    FOCNERF_REGS(7)
+#undef FOCNERF_REGS
+    default: break;
+  }
+  return err == cudaSuccess && (kernel == 0 || kernel == 1) ? attr.numRegs : -1;
+}
+
+// out: blocks floats. Launches blocks x 512 threads.
+extern "C" int focnerf_l2_read(const void* buf, long long n4, int reps, int blocks, void* out, void* stream) {
+  if (n4 <= 0 || reps <= 0 || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  l2_read_kernel<<<blocks, 512, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<const float4*>(buf), n4, reps,
+                                                                        static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,9 +28,10 @@ warp's duplicate rows summed before its atomics) or raises.
 
 The forward is ``hashgrid_encode_forward``: on CPU tensors its plain
 version ``encode_plain`` (a torch loop over the levels); on CUDA tensors it
-launches ``csrc/hashgrid_fwd.cu``'s encode kernel (a thread per point and
-level, the level table passed by value) or raises. JAX leaves this function
-to XLA (``_encode_impl``); no Pallas kernel stood there.
+launches ``csrc/hashgrid_fwd.cu``'s encode kernel (a block takes a tile of
+points and all their levels, staged through shared memory; the level table
+and the tile, ``encode_tile``, passed by value) or raises. JAX leaves
+this function to XLA (``_encode_impl``); no Pallas kernel stood there.
 
 When the points require grad, the backward also gives them theirs
 (``hashgrid_input_grad``): JAX's ``input_grads=True`` encode, which the
@@ -344,7 +345,7 @@ def hashgrid_input_grad(table: torch.Tensor, x01: torch.Tensor, g: torch.Tensor,
 
     CPU tensors: ``input_grad_plain``. CUDA tensors: the position-gradient
     kernel of ``csrc/hashgrid_fwd.cu``, one launch counted in
-    ``hashgrid_input_grad.launches`` (levels added in order in each block:
+    ``hashgrid_input_grad.launches`` (each point's levels added in order:
     deterministic)."""
     if not table.is_cuda:
         if table.device.type != "cpu":
@@ -535,6 +536,8 @@ hashgrid_table_grad.launches = 0
 
 
 _MAX_LEVELS = 32  # csrc/hashgrid_fwd.cu's kMaxLevels
+# csrc/hashgrid_fwd.cu's kernels, by the names a torch.profiler trace shows
+ENCODE_KERNEL, INPUT_GRAD_KERNEL = "encode_kernel", "input_grad_kernel"
 
 
 class _LevelTable(ctypes.Structure):
@@ -551,7 +554,7 @@ class _LevelTable(ctypes.Structure):
         ("inv_k", ctypes.c_float),
         ("scale", ctypes.c_float * _MAX_LEVELS),
         ("offset", ctypes.c_uint32 * _MAX_LEVELS),
-        ("size", ctypes.c_uint32 * _MAX_LEVELS),
+        ("mask", ctypes.c_uint32 * _MAX_LEVELS),
         ("res1", ctypes.c_uint32 * _MAX_LEVELS),
         ("hashed", ctypes.c_int * _MAX_LEVELS),
         ("stoch", ctypes.c_int * _MAX_LEVELS),
@@ -562,9 +565,12 @@ class _LevelTable(ctypes.Structure):
 @functools.lru_cache(maxsize=None)
 def level_table(spec: HashGridSpec, stochastic: bool) -> _LevelTable:
     """The kernels' level table of ``spec``: each level's scale (``_level_scale``'s
-    fp32), offset, size, R + 1, hashed flag, index on the draws' axis 1 (-1:
-    exact; every level is exact unless ``stochastic``) and first residual
-    column (``col_levels``' order)."""
+    fp32), offset, mask (a hashed level's size less 1: the kernels mask the
+    hash where the plain version takes it modulo the size, so a hashed
+    level's size must be a power of two, as ``HashGridSpec.create`` makes
+    every one; 0 on a dense level), R + 1, hashed flag, index on the draws'
+    axis 1 (-1: exact; every level is exact unless ``stochastic``) and first
+    residual column (``col_levels``' order)."""
     L = spec.num_levels
     if not 1 <= L <= _MAX_LEVELS or not 1 <= spec.input_dim <= len(_PRIMES) or not 1 <= spec.level_dim <= 8:
         raise ValueError(f"encode kernel: {L} levels (at most {_MAX_LEVELS}), input_dim {spec.input_dim} "
@@ -579,12 +585,144 @@ def level_table(spec: HashGridSpec, stochastic: bool) -> _LevelTable:
     for lvl in range(L):
         lt.scale[lvl] = _level_scale(spec, lvl)
         lt.offset[lvl] = spec.offsets[lvl]
-        lt.size[lvl] = spec.level_size(lvl)
+        size = spec.level_size(lvl)
+        if spec.hashed[lvl] and size & (size - 1):
+            raise ValueError(f"encode kernel: hashed level {lvl} has {size} rows, not a power of two")
+        lt.mask[lvl] = size - 1 if spec.hashed[lvl] else 0
         lt.res1[lvl] = spec.resolutions[lvl] + 1
         lt.hashed[lvl] = int(spec.hashed[lvl])
         lt.stoch[lvl] = stoch.index(lvl) if lvl in stoch else -1
         lt.col[lvl] = cols.index(lvl)
     return lt
+
+
+class _Tile(ctypes.Structure):
+    """A block's tile and its shared-memory layout, passed by value
+    (csrc/hashgrid_fwd.cu ``Tile``, field for field): strides in words
+    between consecutive points' rows, offsets in words (x's tile at 0)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "points", "warps", "smem_bytes", "x_stride", "u_stride", "cols_stride", "res_stride", "res_levels",
+        "u_off", "cols_off", "rows_off", "weights_off", "terms_off")]
+
+
+SMEM_LIMIT = 232448  # 227 KB: a block's most dynamic shared memory on sm_90
+# An H100 SM: 228 KB of shared memory (1 KB of it reserved a block), 64K
+# registers (a warp's taken in units of 256), 64 warps, 32 blocks.
+SM_SMEM, SM_BLOCK_SMEM, SM_REGS, SM_WARPS, SM_BLOCKS = 233472, 1024, 65536, 64, 32
+# The shared memory the blocks resident on an SM may take between them: the
+# rest of the SM's 256 KB is L1, where the coarse levels' gathers hit. On
+# the card the fastest tile of each of the seven shapes swept (PERF.md, PR
+# 18) kept 97-174 KB; tiles at 184-230 KB ran up to 2x slower.
+SM_SMEM_TARGET = 180224  # 176 KB
+TILE_POINTS = (128, 96, 64, 32)
+TILE_WARPS = (8, 4, 2, 1)  # csrc/hashgrid_fwd.cu's kMaxWarps is the first
+
+
+def _odd(words: int) -> int:
+    """A row stride of at least ``words``, odd: a warp reading one column of
+    32 rows hits 32 banks."""
+    return words | 1
+
+
+def _seg(words: int) -> int:
+    """Words a tile takes, rounded up to 16 bytes."""
+    return -(-words // 4) * 4
+
+
+def _layout(P: int, D: int, L: int, C: int, ulen: int, res_cols: int, res_levels: int, terms: bool,
+            warps: int) -> _Tile:
+    """Tiles x [P, D], u [P, ulen], the [P, L*C] columns, rows and weights
+    [P, res_cols] (0: none), the residual columns of ``res_levels`` levels,
+    and the level terms [L, D, P] (``terms``), one after another, each at a
+    16-byte offset."""
+    xs, us, cs, rs = _odd(D), _odd(ulen) if ulen else 0, _odd(L * C), _odd(res_cols) if res_cols else 0
+    offs, off = [], _seg(P * xs)
+    for words in (P * us, P * cs, P * rs, P * rs, L * D * P if terms else 0):
+        offs.append(off)
+        off += _seg(words)
+    u_off, cols_off, rows_off, weights_off, terms_off = offs
+    return _Tile(points=P, warps=warps, smem_bytes=off * 4, x_stride=xs, u_stride=us, cols_stride=cs,
+                 res_stride=rs, res_levels=res_levels, u_off=u_off, cols_off=cols_off, rows_off=rows_off,
+                 weights_off=weights_off, terms_off=terms_off)
+
+
+def resident_blocks(tile: _Tile, regs: int) -> int:
+    """Blocks of ``tile`` an SM holds at once, each thread taking ``regs``
+    registers."""
+    warp_regs = -(-regs * 32 // 256) * 256
+    return min(SM_BLOCKS, SM_WARPS // tile.warps, SM_REGS // (warp_regs * tile.warps),
+               SM_SMEM // (tile.smem_bytes + SM_BLOCK_SMEM))
+
+
+def _best(tiles, regs: int) -> _Tile:
+    """Of ``tiles`` (each chunk's items a multiple of its warps), those
+    whose resident blocks leave L1 its share (``SM_SMEM_TARGET``) and hold
+    within 15% of the most warps any of them does; of these the one with
+    the most (point, level) items a chunk, then the most points, then the
+    most warps (on the card, tiles of fewer points ran slower at the same
+    occupancy: each block's copies in and out do no gathers). Else the one
+    of least shared memory. Within ``SMEM_LIMIT`` either way."""
+    tiles = [t for t in tiles if t.smem_bytes <= SMEM_LIMIT]
+    if not tiles:
+        raise ValueError(f"encode kernels: no tile fits a block's {SMEM_LIMIT} B of shared memory")
+    fits = [t for t in tiles if 0 < resident_blocks(t, regs) * (t.smem_bytes + SM_BLOCK_SMEM) <= SM_SMEM_TARGET]
+    if not fits:
+        return min(tiles, key=lambda t: (t.smem_bytes, -t.warps))
+    most = max(resident_blocks(t, regs) * t.warps for t in fits)
+    pool = [t for t in fits if resident_blocks(t, regs) * t.warps >= 0.85 * most]
+    return max(pool, key=lambda t: (t.points * t.res_levels, t.points, t.warps))
+
+
+def _warps(items: int):
+    """The block sizes whose warps share ``items`` evenly."""
+    return [w for w in TILE_WARPS if items % w == 0]
+
+
+@functools.lru_cache(maxsize=None)
+def encode_tile(L: int, D: int, C: int, ulen: int, level_cols: int, residuals: bool, regs: int) -> _Tile:
+    """The encode kernel's tile, for a kernel of ``regs`` registers a thread:
+    P points (``TILE_POINTS``), their x, draws (``ulen`` floats a point) and
+    out, and with ``residuals`` the rows and weights of a chunk of levels at
+    a time (``level_cols`` columns a level at the most; the levels cut into
+    chunks of equal size, the last one less), with warps that share each
+    chunk's (32-point group, level) items evenly; the best by ``_best``."""
+    chunks = sorted({-(-L // m) for m in range(1, L + 1)}, reverse=True) if residuals else [L]
+    return _best([_layout(P, D, L, C, ulen, k * level_cols if residuals else 0, k, False, w)
+                  for k in chunks for P in TILE_POINTS for w in _warps(P // 32 * k)], regs)
+
+
+@functools.lru_cache(maxsize=None)
+def input_grad_tile(L: int, D: int, C: int, regs: int) -> _Tile:
+    """The position-gradient kernel's tile, for a kernel of ``regs``
+    registers a thread: P points, their x and cotangent and the level terms,
+    with warps that share the (32-point group, level) items evenly; the best
+    by ``_best``."""
+    return _best([_layout(P, D, L, C, 0, 0, L, True, w) for P in TILE_POINTS for w in _warps(P // 32 * L)],
+                 regs)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_regs(kernel: str, D: int) -> int:
+    """Registers a thread of the built ``encode`` or ``input_grad`` kernel
+    for input_dim D uses (``cudaFuncGetAttributes``)."""
+    from focnerf_tpu_torch.ops._build import load_library
+
+    fn = load_library("hashgrid_fwd").focnerf_hashgrid_kernel_regs
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    regs = fn({"encode": 0, "input_grad": 1}[kernel], D)
+    if regs <= 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed for the {kernel} kernel at D = {D}")
+    return regs
+
+
+def spec_encode_tile(spec: HashGridSpec, stochastic: bool, residuals: bool, regs: int) -> _Tile:
+    """``encode_tile`` of ``spec``'s encode (``stochastic``: with draws)."""
+    lt = level_table(spec, stochastic)
+    D = spec.input_dim
+    level_cols = max(lt.k if lt.stoch[lvl] >= 0 else 1 << D for lvl in range(spec.num_levels))
+    return encode_tile(spec.num_levels, D, spec.level_dim, lt.n_stoch * lt.k * D, level_cols, residuals, regs)
 
 
 def _check_table(table: torch.Tensor, spec: HashGridSpec):
@@ -612,6 +750,7 @@ def _encode_launch(table, x01, spec: HashGridSpec, u, residuals: bool):
     if stoch:
         _check("u", u, torch.float32, (n, len(stoch), spec.stochastic_k, D), device)
     lt = level_table(spec, u is not None)
+    tile = spec_encode_tile(spec, u is not None, residuals, kernel_regs("encode", D))
     out = torch.empty((n, L * C), dtype=torch.float32, device=device)
     rows = weights = None
     if residuals:
@@ -620,8 +759,8 @@ def _encode_launch(table, x01, spec: HashGridSpec, u, residuals: bool):
     fn = load_library("hashgrid_fwd").focnerf_hashgrid_encode
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [_LevelTable, ctypes.c_longlong] + [ctypes.c_void_p] * 4
-    err = fn(table.data_ptr(), x.data_ptr(), u.data_ptr() if stoch else None, lt, n, out.data_ptr(),
+        fn.argtypes = [ctypes.c_void_p] * 3 + [_LevelTable, _Tile, ctypes.c_longlong] + [ctypes.c_void_p] * 4
+    err = fn(table.data_ptr(), x.data_ptr(), u.data_ptr() if stoch else None, lt, tile, n, out.data_ptr(),
              None if rows is None else rows.data_ptr(), None if weights is None else weights.data_ptr(),
              torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -646,12 +785,13 @@ def _input_grad_launch(table, x01, g, spec: HashGridSpec):
     _check("x01", x, torch.float32, (n, D), device)
     _check("g", g, torch.float32, (n, L * C), device)
     lt = level_table(spec, False)
+    tile = input_grad_tile(L, D, C, kernel_regs("input_grad", D))
     gx = torch.empty((n, D), dtype=torch.float32, device=device)
     fn = load_library("hashgrid_fwd").focnerf_hashgrid_input_grad
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [_LevelTable, ctypes.c_longlong] + [ctypes.c_void_p] * 2
-    err = fn(table.data_ptr(), x.data_ptr(), g.data_ptr(), lt, n, gx.data_ptr(),
+        fn.argtypes = [ctypes.c_void_p] * 3 + [_LevelTable, _Tile, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+    err = fn(table.data_ptr(), x.data_ptr(), g.data_ptr(), lt, tile, n, gx.data_ptr(),
              torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"position-gradient kernel launch failed: cudaError {err}")

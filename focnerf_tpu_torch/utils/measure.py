@@ -10,6 +10,8 @@
     also launches others;
   - ``dependent_load_ns``: the card's latency per dependent load from an
     L2-resident buffer (a pointer chase);
+  - ``l2_read_bytes_per_s``: the card's L2 read rate (a buffer that stays
+    in L2, read again and again);
   - ``seeded_model``: the full-width serving model from a seed, with a
     density grid equal to the field's sigma at every cell centre.
 """
@@ -106,19 +108,23 @@ def counted_device_ms(fn, iters: int = 50):
     return ms, len(events), per_call * iters
 
 
-def kernel_ms(fn, name: str, iters: int = 100):
+def kernel_ms(fn, name: str, iters: int = 100, flush: bool = False):
     """(device ms per call, events) of the kernels whose name holds ``name``
     in a torch.profiler trace of ``iters`` calls of ``fn`` (after 5 warm-up
     calls): that kernel's own time, without the other kernels ``fn``
-    launches. ``events`` is how many such kernels the trace recorded; a
-    trace that lost events reads low."""
+    launches. ``flush``: a 256 MB buffer is zeroed before every call, so
+    the call finds none of its operands in L2. ``events`` is how many such
+    kernels the trace recorded; a trace that lost events reads low."""
     from torch.profiler import ProfilerActivity, profile
 
+    scrub = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda") if flush else None
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush:
+                scrub.zero_()
             fn()
         torch.cuda.synchronize()
     events = [e for e in _device(prof) if name in e.name]
@@ -164,6 +170,41 @@ def dependent_load_ns(nbytes: int, device, steps: int = 200000, repeats: int = 3
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) * 1e6 / steps)
     return best
+
+
+def l2_read_bytes_per_s(nbytes: int, device, reps: int = 50, repeats: int = 3) -> float:
+    """The card's L2 read rate, bytes/s: a zeroed buffer of ``nbytes``
+    (small enough to stay in L2) read ``reps`` times by
+    ``csrc/hashgrid_fwd.cu``'s ``focnerf_l2_read`` (float4 loads cached in
+    L2 only, four blocks of 512 threads an SM), after a pass that leaves it
+    in L2. The fastest of ``repeats`` runs, timed with CUDA events."""
+    import ctypes
+
+    from focnerf_tpu_torch.ops._build import load_library
+
+    buf = torch.zeros(nbytes // 16 * 4, dtype=torch.float32, device=device)
+    blocks = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    out = torch.zeros(blocks, dtype=torch.float32, device=device)
+    fn = load_library("hashgrid_fwd").focnerf_l2_read
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def read(k: int):
+        err = fn(buf.data_ptr(), buf.numel() // 4, k, blocks, out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"L2 read kernel launch failed: cudaError {err}")
+
+    read(1)  # the buffer into L2
+    best = float("inf")
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        read(reps)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    return buf.numel() * 4 * reps / best
 
 
 def seeded_model(opt, device, seed: int = 0):

@@ -147,8 +147,8 @@ def test_level_table_matches_jax_spec(dim, k, min_size, active):
     for lvl in range(js.num_levels):
         want = np.float32(np.exp2(lvl * np.log2(js.per_level_scale)) * js.base_resolution - 1.0)
         assert np.float32(lt.scale[lvl]) == want
-        assert (lt.offset[lvl], lt.size[lvl], lt.res1[lvl], bool(lt.hashed[lvl])) == (
-            js.offsets[lvl], js.level_size(lvl), js.resolutions[lvl] + 1, js.hashed[lvl])
+        assert (lt.offset[lvl], lt.mask[lvl], lt.res1[lvl], bool(lt.hashed[lvl])) == (
+            js.offsets[lvl], js.level_size(lvl) - 1 if js.hashed[lvl] else 0, js.resolutions[lvl] + 1, js.hashed[lvl])
         start, ncols = layout[lvl]
         assert lt.col[lvl] == start
         drawn = k > 0 and jhg._is_stochastic_level(js, lvl)
@@ -161,14 +161,161 @@ def test_level_table_matches_jax_spec(dim, k, min_size, active):
         assert exact.total_cols == js.num_levels << dim and all(exact.stoch[lvl] == -1 for lvl in range(js.num_levels))
 
 
+def _struct_members(name: str):
+    with open(os.path.join(ROOT, "focnerf_tpu_torch", "csrc", "hashgrid_fwd.cu")) as f:
+        body = re.search(r"struct %s \{(.*?)\};" % name, f.read(), re.S).group(1)
+    return re.findall(r"^\s*(?:int|float|uint32_t)\s+(\w+)(?:\[kMaxLevels\])?;", body, re.M)
+
+
 def test_level_table_struct_matches_the_kernel_source():
     """``_LevelTable``'s fields are csrc/hashgrid_fwd.cu's ``LevelTable``
     members, in order, all 4-byte (no padding on either side)."""
-    with open(os.path.join(ROOT, "focnerf_tpu_torch", "csrc", "hashgrid_fwd.cu")) as f:
-        body = re.search(r"struct LevelTable \{(.*?)\};", f.read(), re.S).group(1)
-    members = re.findall(r"^\s*(?:int|float|uint32_t)\s+(\w+)(?:\[kMaxLevels\])?;", body, re.M)
-    assert members == [name for name, _ in thg._LevelTable._fields_]
+    assert _struct_members("LevelTable") == [name for name, _ in thg._LevelTable._fields_]
     assert ctypes.sizeof(thg._LevelTable) == 7 * 4 + 7 * 4 * thg._MAX_LEVELS
+
+
+def test_tile_struct_matches_the_kernel_source():
+    """``_Tile``'s fields are csrc/hashgrid_fwd.cu's ``Tile`` members, in
+    order, all int; the kernel's warp and shared-memory limits are the
+    host's."""
+    assert _struct_members("Tile") == [name for name, _ in thg._Tile._fields_]
+    assert ctypes.sizeof(thg._Tile) == 4 * len(thg._Tile._fields_)
+    with open(os.path.join(ROOT, "focnerf_tpu_torch", "csrc", "hashgrid_fwd.cu")) as f:
+        src = f.read()
+    assert f"constexpr int kMaxWarps = {max(thg.TILE_WARPS)};" in src
+    assert f"constexpr int kMaxSmemBytes = {thg.SMEM_LIMIT};" in src
+
+
+def _cli_specs():
+    """Every hash-grid spec the CLIs build, by name."""
+    from focnerf_tpu_torch.config import parse_options
+
+    cfg = parse_options(["scene", "-O"]).nerf_config()
+    o2 = parse_options(["scene", "-O2"]).nerf_config().grid_spec
+    return {
+        "-O": cfg.grid_spec,
+        "-O2 stage": dataclasses.replace(o2, grad_levels=(1, 3, 5, 7)).truncate(8),
+        "background": cfg.bg_grid_spec,
+        "deform": parse_options(["scene", "-O"]).dnerf_config().field_spec,
+        "hyper": parse_options(["scene", "-O", "--hyper"]).dnerf_config().field_spec,
+        "exact": dataclasses.replace(cfg.grid_spec, stochastic_k=0, stochastic_min_size=0),
+    }
+
+
+@pytest.mark.parametrize("name", ["-O", "-O2 stage", "background", "deform", "hyper", "exact"])
+def test_level_table_masks_the_hash_of_every_cli_spec(name):
+    """The kernels mask a hashed level's hash where the plain version takes
+    it modulo the size: every hashed level of every spec the CLIs build has
+    a power-of-two size and mask size - 1 (so ``h & mask == h % size`` for
+    every uint32 h), every dense level mask 0."""
+    spec = _cli_specs()[name]
+    assert any(spec.hashed)
+    for stochastic in (False, True):
+        lt = thg.level_table(spec, stochastic)
+        for lvl in range(spec.num_levels):
+            size = spec.level_size(lvl)
+            if spec.hashed[lvl]:
+                assert size & (size - 1) == 0 and lt.mask[lvl] == size - 1
+                h = np.random.default_rng(lvl).integers(0, 2**32, 1000, dtype=np.uint64)
+                np.testing.assert_array_equal(h & np.uint64(lt.mask[lvl]), h % np.uint64(size))
+            else:
+                assert lt.mask[lvl] == 0
+
+
+def test_level_table_refuses_a_hashed_level_not_a_power_of_two():
+    """A hand-made spec whose hashed level's size is no power of two: the
+    plain version still takes it (modulo), the kernels' wrappers refuse it
+    before they build anything."""
+    _, ts = _specs(3)
+    lvl = ts.hashed.index(True)
+    offsets = list(ts.offsets)
+    offsets[lvl + 1:] = [o - 8 for o in offsets[lvl + 1:]]  # the level loses 8 of its 2^11 rows
+    bad = dataclasses.replace(ts, offsets=tuple(offsets))
+    assert bad.level_size(lvl) == 2**11 - 8
+    with pytest.raises(ValueError, match="not a power of two"):
+        thg.level_table(bad, False)
+    table = torch.zeros((bad.table_rows, 2))
+    x = torch.rand(64, 3, generator=torch.Generator().manual_seed(3))
+    with pytest.raises(ValueError, match="not a power of two"):
+        thg._encode_launch(table, x, bad, None, residuals=True)
+    with pytest.raises(ValueError, match="not a power of two"):
+        thg._input_grad_launch(table, x, torch.zeros((64, bad.output_dim)), bad)
+    out, _, _ = thg.encode_plain(table, x, bad, None, residuals=False)
+    assert out.shape == (64, bad.output_dim)
+
+
+def _check_tile(t, L, D, C, ulen, res_cols, grad, regs):
+    """A tile the kernels can take: P a multiple of 32 (at most 128), each
+    chunk's (32-point group, level) items shared evenly by at most the
+    kernel's warps, within the block's shared memory, each tile at a
+    16-byte offset after the one before, each stride odd and at least its
+    row; where any tile would, its resident blocks leave L1 its share."""
+    assert t.points % 32 == 0 and 32 <= t.points <= max(thg.TILE_POINTS)
+    assert 1 <= t.res_levels <= L and (t.res_levels == L or not grad)
+    assert t.warps in thg.TILE_WARPS and t.points // 32 * t.res_levels % t.warps == 0
+    assert 0 < t.smem_bytes <= thg.SMEM_LIMIT and t.smem_bytes % 16 == 0
+    P = t.points
+    spans = [(0, P * t.x_stride), (t.u_off, P * t.u_stride), (t.cols_off, P * t.cols_stride),
+             (t.rows_off, P * t.res_stride), (t.weights_off, P * t.res_stride),
+             (t.terms_off, L * D * P if grad else 0)]
+    end = 0
+    for off, words in spans:
+        assert off % 4 == 0 and off >= end
+        end = off + words
+    assert end * 4 <= t.smem_bytes
+    for stride, row in ((t.x_stride, D), (t.u_stride, ulen), (t.cols_stride, L * C), (t.res_stride, res_cols)):
+        assert stride == 0 if row == 0 else (stride % 2 == 1 and stride >= row)
+    blocks = thg.resident_blocks(t, regs)
+    least = thg._layout(32, D, L, C, ulen, res_cols // t.res_levels if res_cols else 0, 1 if res_cols else L, grad, 1)
+    if thg.resident_blocks(least, regs) * (least.smem_bytes + thg.SM_BLOCK_SMEM) <= thg.SM_SMEM_TARGET:
+        assert 0 < blocks and blocks * (t.smem_bytes + thg.SM_BLOCK_SMEM) <= thg.SM_SMEM_TARGET
+
+
+@pytest.mark.parametrize("dim", range(1, 8))
+def test_tiles_fit_every_shape_the_kernels_take(dim):
+    """``encode_tile`` and ``input_grad_tile`` over levels 1-32, channels
+    1-8, draws K 0-4 (0: exact, 2^D columns a level), residuals on and off
+    and kernels of 40 and 128 registers a thread: every tile is one the
+    kernels take (``_check_tile``); a chunk holds the residual columns of
+    ``res_levels`` levels."""
+    for regs in (40, 128):
+        for L in range(1, 33):
+            for C in range(1, 9):
+                _check_tile(thg.input_grad_tile(L, dim, C, regs), L, dim, C, 0, 0, True, regs)
+                for K in range(5):
+                    ulen, level_cols = L * K * dim, K or 1 << dim
+                    for residuals in (True, False):
+                        t = thg.encode_tile(L, dim, C, ulen, level_cols, residuals, regs)
+                        assert residuals or t.res_levels == L
+                        _check_tile(t, L, dim, C, ulen, t.res_levels * level_cols if residuals else 0, False, regs)
+
+
+def test_tiles_of_the_main_path():
+    """The tiles the occupancy model gives the main path's encodes at the
+    register counts the card's build reported (the encode 48 a thread at
+    D = 3 and 64 at D = 5, the position gradient 40 and 80): each was the
+    fastest of the tiles timed at its shape in one call on the card
+    (PERF.md, PR 18). The -O training encode 64 points, all 16 levels'
+    residuals at once; serving 128 points; a c2f stage 128 points, 8
+    levels; D-NeRF's deform forward 64 points, 4 levels' 32 columns at a
+    time, the hyper forward 128 points, 2 levels' 64 columns; the position
+    gradient 64 points (deform) and 96 (hyper)."""
+    specs = _cli_specs()
+    got = {
+        "-O": thg.spec_encode_tile(specs["-O"], True, True, 48),
+        "serving": thg.spec_encode_tile(specs["exact"], False, False, 48),
+        "-O2 stage": thg.spec_encode_tile(specs["-O2 stage"], True, True, 48),
+        "deform": thg.spec_encode_tile(specs["deform"], False, True, 48),
+        "hyper": thg.spec_encode_tile(specs["hyper"], False, True, 64),
+        "deform gradient": thg.input_grad_tile(16, 3, 2, 40),
+        "hyper gradient": thg.input_grad_tile(16, 5, 2, 80),
+    }
+    assert {name: (t.points, t.warps, t.res_levels) for name, t in got.items()} == {
+        "-O": (64, 8, 16), "serving": (128, 8, 16), "-O2 stage": (128, 8, 8), "deform": (64, 8, 4),
+        "hyper": (128, 8, 2), "deform gradient": (64, 8, 16), "hyper gradient": (96, 8, 16)}
+    assert got["-O"].res_stride == 17 and got["-O"].u_stride == 49
+    assert got["deform"].res_stride == 33 and got["hyper"].res_stride == 65
+
 
 
 def test_dispatchers_take_the_plain_versions_on_cpu():

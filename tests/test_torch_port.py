@@ -430,6 +430,95 @@ def test_encode_kernel_replays_in_a_cuda_graph():
     assert float((got_gx - want_gx).norm() / want_gx.norm()) <= 1e-5
 
 
+def _tile_spec(dim: int, level_dim: int = 2, levels: int = 16, k: int = 0):
+    """Dense and hashed levels for any D: resolution 2 growing 1.5x a level
+    (1.2x over 32 levels), at most 2^min(4 + 2D, 14) rows a level; K drawn
+    corners on every level (0: exact)."""
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    spec = thg.HashGridSpec.create(num_levels=levels, level_dim=level_dim, base_resolution=2,
+                                   log2_hashmap_size=min(4 + 2 * dim, 14),
+                                   per_level_scale=1.5 if levels <= 16 else 1.2, input_dim=dim)
+    return dataclasses.replace(spec, stochastic_k=k, stochastic_min_size=1 if k else 0)
+
+
+# the tiles' edges: (input_dim, level_dim, levels, K, points, x unaligned);
+# points "P-1", "P+1" and "5P+37" count in each kernel's own tile of P points
+TILE_CASES = {
+    "points 1": (3, 2, 16, 1, 1, False),
+    "points 31": (3, 2, 16, 1, 31, False),
+    "points 33": (3, 2, 16, 1, 33, False),
+    "points P-1": (3, 2, 16, 1, "P-1", False),
+    "points P+1": (3, 2, 16, 1, "P+1", False),
+    "points 5P+37": (3, 2, 16, 1, "5P+37", False),
+    "level_dim 1": (3, 1, 16, 1, 5000, False),
+    "level_dim 4": (3, 4, 16, 1, 5000, False),
+    "level_dim 8": (3, 8, 16, 1, 5000, False),
+    "levels 1": (3, 2, 1, 1, 5000, False),
+    "levels 32": (3, 2, 32, 1, 5000, False),
+    "K 2": (3, 2, 16, 2, 5000, False),
+    "K 4": (3, 2, 16, 4, 5000, False),
+    "D 1": (1, 2, 16, 1, 5000, False),
+    "D 5": (5, 2, 16, 1, 5000, False),
+    "D 7": (7, 2, 16, 1, 5000, False),
+    "x unaligned": (3, 2, 16, 1, 5000, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_encode_kernels_on_tile_edges_on_card(case):
+    """Both encode kernels where their tiles end: tails of every length, a
+    point's row of 1, 4 or 8 channels (no float2), 1 and 32 levels, K 2 and
+    4, D 1, 5 and 7 (the exact encodes' residuals staged a chunk of levels at
+    a time), x starting off a 16-byte boundary. The encode (drawn corners,
+    and exact) against ``encode_plain``: rows bit for bit, weights 1e-6
+    relative + 1e-7, out 1e-6 (a U(-1, 1) table), the same out with and
+    without residuals, two runs equal; the position gradient against
+    ``input_grad_plain``: 1e-5 rel L2, two runs equal; 0 outside the cube."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the encode kernels have no CPU mode")
+    from focnerf_tpu_torch.ops import hashgrid as thg
+
+    dim, C, L, k, count, unaligned = TILE_CASES[case]
+    spec = _tile_spec(dim, C, L, k)
+    exact = dataclasses.replace(spec, stochastic_k=0, stochastic_min_size=0)
+    assert any(spec.hashed) or L == 1
+    g = torch.Generator().manual_seed(dim * 100 + C * 10 + k)
+    table = (torch.rand(spec.table_rows, C, generator=g) * 2 - 1).cuda()
+
+    def points(P, seed):
+        n = count if isinstance(count, int) else {"P-1": P - 1, "P+1": P + 1, "5P+37": 5 * P + 37}[count]
+        x = _encode_points(spec, n + unaligned, seed)[unaligned:]
+        assert (x.data_ptr() % 16 != 0) == unaligned
+        return x
+
+    for sp, draws in ((spec, True), (exact, False)):
+        x = points(thg.spec_encode_tile(sp, draws, True, thg.kernel_regs("encode", dim)).points, dim + k)
+        n = x.shape[0]
+        u = torch.rand(n, len(thg.stochastic_levels(sp)), k, dim, generator=g).cuda() if draws else None
+        out, rows, weights = thg.hashgrid_encode_forward(table, x, sp, u, residuals=True)
+        again = thg.hashgrid_encode_forward(table, x, sp, u, residuals=True)
+        bare, _, _ = thg.hashgrid_encode_forward(table, x, sp, u, residuals=False)
+        pout, prows, pweights = thg.encode_plain(table, x, sp, u, residuals=True)
+        torch.cuda.synchronize()
+        assert torch.equal(rows, prows), case
+        assert all(torch.equal(a, b) for a, b in zip((out, rows, weights), again)) and torch.equal(out, bare)
+        oob = ((x < 0) | (x > 1)).any(-1)
+        assert torch.all(weights[oob] == 0) and torch.all(out[oob] == 0)
+        torch.testing.assert_close(weights, pweights, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(out, pout, rtol=0, atol=1e-6)
+    x = points(thg.input_grad_tile(L, dim, C, thg.kernel_regs("input_grad", dim)).points, dim + k + 1)
+    cot = torch.randn(x.shape[0], spec.output_dim, generator=g).cuda()
+    got = thg.hashgrid_input_grad(table, x, cot, exact)
+    again = thg.hashgrid_input_grad(table, x, cot, exact)
+    want = thg.input_grad_plain(table, x, cot, exact)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.all(got[((x < 0) | (x > 1)).any(-1)] == 0)
+    assert float((got - want).norm()) <= 1e-5 * float(want.norm())
+
+
 def _skip_field_and_rays(n: int, seed: int, device):
     """A two-cascade skip field of shells and a slab (H = 64) and n rays from
     cameras at radius 3 through the box."""
